@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's correct-mode main path once on one GPU.
+"""Drive the PyTorch/CUDA port's three encode paths once on one GPU.
 
 Run from the repository root on a machine with one CUDA card, nvcc and
 PyTorch built for CUDA:
@@ -8,20 +8,39 @@ PyTorch built for CUDA:
 
 Phases (any failure raises and exits non-zero; there is no CPU path):
 
-1. print the card's name and power limit (nvidia-smi) and build both
-   CUDA kernels from ec504_imageencoder_tpu_torch/csrc/ (cold build time);
+1. print the card's name and power limit (nvidia-smi) and build every
+   CUDA kernel library from ec504_imageencoder_tpu_torch/csrc/, one nvcc
+   per source, all at once (cold build time);
 2. kernel B1 (vlc_fused4) against its plain PyTorch twin on the card, on
    16 x 1080p planes of natural content and on 1000 x 1400 noise: exact;
 3. kernel B2 (pack_fused4) against its twin on those slots, including a
    slice buffer that overflows and one too large for shared memory: exact;
-4. the main path: TorchMPEG1IntraEncoder(quality=50, device="cuda").encode()
-   and .encode_from_planes() on 16 x 1080p frames, plus a forced slice
-   regrow, byte-equal to the host numpy reference encoder; the stream
-   decodes through the spec decoder (PSNR printed); both kernels' launch
-   counts, reset just before, went up;
-5. steady-state times with CUDA events: each kernel against its twin,
-   and encode()/encode_from_planes() in frames/s with every output byte
-   fetched to the host.
+4. the q=50 main path: TorchMPEG1IntraEncoder(quality=50, device="cuda")
+   .encode() and .encode_from_planes() on 16 x 1080p frames, plus a forced
+   slice regrow, byte-equal to the host numpy reference encoder; the
+   stream decodes through the spec decoder (PSNR printed); the B1 and B2
+   launch counts, reset just before, went up;
+5. steady-state times with CUDA events: B1 and B2 against their twins,
+   and q=50 encode()/encode_from_planes() in frames/s with every output
+   byte fetched to the host;
+6. kernel B3 (vlc_levels4) against its twin: 16 x 1080p at q=85 (levels
+   computed once on the card by the f32 DCT path) and 2 x 1000 x 1400
+   noise at q=100 (28-bit escapes): exact;
+7. kernels B4a (vlc_compat_slots) and B4b (vlc_compat_fused4) against
+   their twins on the 30 golden frames and on 480 frames of 400 x 600
+   (16 copies of the golden sequence): exact;
+8. the q=85 path (f32 DCT): encode() and encode_from_planes() on the 16 x
+   1080p frames; the stream decodes within 0.05 dB PSNR of the numpy
+   reference encoder (bytes compared too); the same bytes for 16 frames
+   at once, 2 x 8 and 16 x 1 (first_frame_index), and with TF32 matmuls
+   allowed; dct_impl="aan" at q=85 byte-equal to the numpy reference; the
+   B3 and B2 launch counts went up and B1's did not;
+9. compat mode: encode_compat(device="cuda") equals the golden stream and
+   .bit dump md5s on the 30 golden frames, also with debug_checks (raw
+   slots through B4a), and equals the numpy reference encode_compat on
+   the 480 frames; the B4b and B4a launch counts went up;
+10. times: B3, B4b and B4a against their twins, q=85
+   encode()/encode_from_planes() and compat encode_compat() in frames/s.
 
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.
@@ -29,6 +48,7 @@ is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -39,6 +59,9 @@ ROOT = Path(__file__).resolve().parent
 SEED = 20261016
 BATCH, HEIGHT, WIDTH = 16, 1080, 1920
 QUALITY = 50
+HQ_QUALITY = 85
+COMPAT_QUALITY = 12
+COMPAT_COPIES = 16  # 480 frames of 400 x 600
 
 
 def _gpu_line() -> str:
@@ -62,6 +85,17 @@ def _frames(np, rng, n: int):
         dy, dx = (int(v) for v in rng.integers(0, im.shape[:2]))
         out[i] = tiled[dy:dy + HEIGHT, dx:dx + WIDTH]
     return out
+
+
+def _golden(np):
+    """The reference C encoder's 30 input frames, its stream and its .bit
+    dump md5s (tests/golden)."""
+    g = ROOT / "tests" / "golden"
+    order = json.loads((g / "frame_order.json").read_text())["unique_ids"]
+    with np.load(g / "fixture_rgb.npz") as z:
+        frames = np.stack([z[k] for k in order])
+    md5s = json.loads((g / "bit_dump_md5.json").read_text())
+    return frames, (g / "awesome_video.mpeg").read_bytes(), md5s
 
 
 def _pad_planes(np, y, cb, cr):
@@ -88,6 +122,37 @@ def _event_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _frames_per_s(torch, fn, n_frames: int, reps: int) -> tuple[float, float]:
+    """(frames/s, ms per call) of fn(), which returns host bytes."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    return n_frames * reps / dt, 1e3 * dt / reps
+
+
+def _check_twin(torch, name, kernel, twin, args) -> int:
+    got, want = kernel(*args), twin(*args)
+    torch.cuda.synchronize()
+    err = _max_abs_err(torch, got, want)
+    print(f"{name}: outputs {tuple(got[0].shape)}, max_abs_err {err}")
+    if err != 0:
+        raise AssertionError(f"{name}: kernel disagrees with its twin")
+    return err
+
+
+def _check_launches(path: str, counts: dict, must_run, must_not_run=()) -> None:
+    print(f"{path}: launches {counts}")
+    for name in must_run:
+        if counts[name] <= 0:
+            raise AssertionError(f"{path} never launched {name}")
+    for name in must_not_run:
+        if counts[name] != 0:
+            raise AssertionError(f"{path} launched {name}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -97,15 +162,36 @@ def main() -> int:
               "needs one CUDA card", file=sys.stderr)
         return 2
 
-    from ec504_imageencoder_tpu_torch.models.mpeg1 import TorchMPEG1IntraEncoder
-    from ec504_imageencoder_tpu_torch.ops import _build, cuda_pack, cuda_vlc
+    from ec504_imageencoder_tpu_torch.models.encoder import encode_compat
+    from ec504_imageencoder_tpu_torch.models.mpeg1 import TorchMPEG1IntraEncoder, f32_levels
+    from ec504_imageencoder_tpu_torch.ops import (
+        _build,
+        cuda_pack,
+        cuda_vlc,
+        cuda_vlc_compat,
+        cuda_vlc_levels,
+    )
     from ec504_imageencoder_tpu_torch.ops.color import rgb_to_ycbcr, subsample_420
+    from ec504_imageencoder_tpu_torch.ops.cuda_vlc import Luts
     from ec504_imageencoder_tpu_torch.shared import (
         MPEG1IntraEncoder,
         decode_es_fast,
+        encode_compat_reference,
         headers,
         psnr,
+        rgb_to_ycbcr_exact,
+        scale_quantization_matrix,
     )
+
+    def reset_launches():
+        cuda_vlc.launches = cuda_pack.launches = cuda_vlc_levels.launches = 0
+        cuda_vlc_compat.launches_slots = cuda_vlc_compat.launches_fused4 = 0
+
+    def read_launches():
+        return {"vlc_fused4": cuda_vlc.launches, "pack_fused4": cuda_pack.launches,
+                "vlc_levels4": cuda_vlc_levels.launches,
+                "vlc_compat_slots": cuda_vlc_compat.launches_slots,
+                "vlc_compat_fused4": cuda_vlc_compat.launches_fused4}
 
     dev = torch.device("cuda", 0)
     gpu = _gpu_line()
@@ -116,15 +202,16 @@ def main() -> int:
 
     # ---- 1. build -------------------------------------------------------
     t0 = time.perf_counter()
-    cuda_vlc.load_kernel()
-    cuda_pack.load_kernel()
+    _build.build(["vlc_fused4", "pack_fused4", "vlc_levels4", "vlc_compat"])
+    for mod in (cuda_vlc, cuda_pack, cuda_vlc_levels, cuda_vlc_compat):
+        mod.load_kernel()
     cold_build_s = time.perf_counter() - t0
     for name, (secs, log) in sorted(_build.build_info.items()):
-        print(f"build {name}: nvcc {secs:.2f} s")
+        print(f"build {name}: nvcc done after {secs:.2f} s")
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas: {line.strip()}")
-    print(f"cold kernel build + load: {cold_build_s:.2f} s {tag}")
+    print(f"cold kernel build (parallel) + load: {cold_build_s:.2f} s {tag}")
 
     rng = np.random.default_rng(SEED)
     frames = _frames(np, rng, BATCH)
@@ -180,25 +267,22 @@ def main() -> int:
         if must_overflow and over == 0:
             raise AssertionError(f"{name}: no slice overflowed")
 
-    # ---- 4. the main path ------------------------------------------------
+    # ---- 4. the q=50 main path -------------------------------------------
     ycc = rgb_to_ycbcr(torch.from_numpy(frames), "full")  # JPEG-style planes, on the host
     jy, jcb, jcr = ycc[0].numpy(), subsample_420(ycc[1]).numpy(), subsample_420(ycc[2]).numpy()
     regrow_frames = rng.integers(0, 256, (2, HEIGHT, WIDTH, 3), dtype=np.uint8)
 
-    cuda_vlc.launches = 0
-    cuda_pack.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     es_rgb = TorchMPEG1IntraEncoder(quality=QUALITY, device=dev).encode(frames)
     es_planes = TorchMPEG1IntraEncoder(quality=QUALITY, device=dev).encode_from_planes(jy, jcb, jcr)
     regrow = TorchMPEG1IntraEncoder(quality=QUALITY, max_slice_bytes=2560, device=dev)
     es_regrow = regrow.encode(regrow_frames)
     main_s = time.perf_counter() - t0
-    launches = {"vlc_fused4": cuda_vlc.launches, "pack_fused4": cuda_pack.launches}
-    print(f"main path (encode + encode_from_planes + regrow encode): {main_s:.2f} s, "
-          f"launches {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"the main path never launched {name}")
+    launches = read_launches()
+    _check_launches(f"q={QUALITY} path (encode + encode_from_planes + regrow encode, "
+                    f"{main_s:.2f} s)", launches, ("vlc_fused4", "pack_fused4"),
+                    ("vlc_levels4", "vlc_compat_slots", "vlc_compat_fused4"))
     if regrow.max_slice_bytes <= 2560:
         raise AssertionError("the forced-regrow run did not regrow")
     print(f"regrow: 2560 B -> {regrow.max_slice_bytes} B per slice")
@@ -224,7 +308,7 @@ def main() -> int:
     if min(p) < 30.0:
         raise AssertionError(f"PSNR {min(p):.2f} dB below 30 dB")
 
-    # ---- 5. steady-state times -------------------------------------------
+    # ---- 5. steady-state times, q=50 -------------------------------------
     sl_hd = slots["16x1080p"]
     times = {
         "vlc_fused4": (
@@ -242,27 +326,174 @@ def main() -> int:
         ("encode", lambda: enc.encode(frames)),
         ("encode_from_planes", lambda: enc.encode_from_planes(jy, jcb, jcr)),
     ):
-        fn()
-        torch.cuda.synchronize()
-        reps = 5
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()  # returns bytes: every slice was fetched to the host
-        dt = time.perf_counter() - t0
-        print(f"{label} 16x1080p q={QUALITY}: {BATCH * reps / dt:.2f} frames/s "
-              f"({1e3 * dt / reps:.2f} ms per batch) {tag}")
+        fps, ms = _frames_per_s(torch, fn, BATCH, 5)
+        print(f"{label} 16x1080p q={QUALITY}: {fps:.2f} frames/s ({ms:.2f} ms per batch) {tag}")
 
+    # ---- 6. B3 against its twin ------------------------------------------
+    hq = TorchMPEG1IntraEncoder(quality=HQ_QUALITY, device=dev)
+    if hq.dct_impl != "f32":
+        raise AssertionError(f"dct_impl 'auto' at q={HQ_QUALITY} did not pick f32")
+    hq_in = f32_levels(*planes_hd, hq.core.qw, hq.core.zigzag)
+    q100 = TorchMPEG1IntraEncoder(quality=100, device=dev).core
+    noise_in = f32_levels(*planes_odd, q100.qw, q100.zigzag)
+    if int(noise_in[0][..., 1:].abs().max()) < 128:
+        raise AssertionError("the q=100 noise levels hold no 28-bit escape")
+    b3_err = max(
+        _check_twin(torch, f"B3 vlc_levels4 vs twin, {name}", cuda_vlc_levels.vlc_levels4,
+                    cuda_vlc_levels.vlc_levels4_plain, (*lv_in, luts))
+        for name, lv_in in ((f"16x1080p q={HQ_QUALITY}", hq_in), (f"2x{oh}x{ow} noise q=100", noise_in))
+    )
+
+    # ---- 7. B4a and B4b against their twins ------------------------------
+    gold_frames, gold_mpeg, gold_md5 = _golden(np)
+    compat_frames = np.concatenate([gold_frames] * COMPAT_COPIES)
+    cluts = Luts.compat(dev)
+    sq = torch.from_numpy(scale_quantization_matrix(COMPAT_QUALITY).astype(np.int32)).to(dev)
+    compat_planes = {}
+    for name, fr in (("30 golden frames", gold_frames), (f"{len(compat_frames)} frames", compat_frames)):
+        compat_planes[name] = tuple(torch.from_numpy(p).to(dev) for p in rgb_to_ycbcr_exact(fr))
+    b4a_err = b4b_err = 0
+    for name, planes in compat_planes.items():
+        b4a_err = max(b4a_err, _check_twin(
+            torch, f"B4a vlc_compat_slots vs twin, {name}", cuda_vlc_compat.vlc_compat_slots,
+            cuda_vlc_compat.vlc_compat_slots_plain, (*planes, sq, cluts)))
+        b4b_err = max(b4b_err, _check_twin(
+            torch, f"B4b vlc_compat_fused4 vs twin, {name}", cuda_vlc_compat.vlc_compat_fused4,
+            cuda_vlc_compat.vlc_compat_fused4_plain, (*planes, sq, cluts)))
+
+    # ---- 8. the q=85 path (f32 DCT) --------------------------------------
+    reset_launches()
+    t0 = time.perf_counter()
+    hq_rgb = TorchMPEG1IntraEncoder(quality=HQ_QUALITY, device=dev).encode(frames)
+    hq_planes = TorchMPEG1IntraEncoder(quality=HQ_QUALITY, device=dev).encode_from_planes(jy, jcb, jcr)
+    hq_s = time.perf_counter() - t0
+    hq_launches = read_launches()
+    _check_launches(f"q={HQ_QUALITY} path (encode + encode_from_planes, {hq_s:.2f} s)",
+                    hq_launches, ("vlc_levels4", "pack_fused4"), ("vlc_fused4",))
+
+    t0 = time.perf_counter()
+    hq_ref = MPEG1IntraEncoder(quality=HQ_QUALITY, backend="numpy")
+    ref_hq_rgb = hq_ref.encode(frames)
+    ref_hq_planes = MPEG1IntraEncoder(quality=HQ_QUALITY, backend="numpy").encode_from_planes(
+        jy, jcb, jcr)
+    print(f"numpy reference encodes, q={HQ_QUALITY} f32 DCT: {time.perf_counter() - t0:.2f} s")
+    for name, got, want, src in (("encode", hq_rgb, ref_hq_rgb, frames),
+                                 ("encode_from_planes", hq_planes, ref_hq_planes, frames)):
+        d_got = decode_es_fast(got + headers.sequence_end())
+        if len(d_got) != BATCH or any(d.shape != f.shape for d, f in zip(d_got, src)):
+            raise AssertionError(f"q={HQ_QUALITY} {name}: wrong decoded frame count or shape")
+        p_got = [psnr(f, d) for f, d in zip(src, d_got)]
+        if got == want:
+            p_want = p_got
+        else:
+            p_want = [psnr(f, d) for f, d in
+                      zip(src, decode_es_fast(want + headers.sequence_end()))]
+        gap = max(abs(a - b) for a, b in zip(p_got, p_want))
+        print(f"q={HQ_QUALITY} {name}: {len(got)} B, reference {len(want)} B, equal "
+              f"{got == want}; PSNR mean {np.mean(p_got):.4f} dB, reference "
+              f"{np.mean(p_want):.4f} dB, largest gap {gap:.4f} dB")
+        if gap >= 0.05:
+            raise AssertionError(f"q={HQ_QUALITY} {name}: PSNR {gap:.4f} dB from the reference")
+
+    splits = {
+        "2 x 8": b"".join(TorchMPEG1IntraEncoder(quality=HQ_QUALITY, device=dev).encode(
+            frames[i:i + 8], first_frame_index=i) for i in (0, 8)),
+        "16 x 1": b"".join(TorchMPEG1IntraEncoder(quality=HQ_QUALITY, device=dev).encode(
+            frames[i:i + 1], first_frame_index=i) for i in range(BATCH)),
+    }
+    prec, tf32 = torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32
+    torch.set_float32_matmul_precision("high")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        splits["TF32 allowed"] = TorchMPEG1IntraEncoder(quality=HQ_QUALITY, device=dev).encode(frames)
+    finally:
+        torch.set_float32_matmul_precision(prec)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for name, es in splits.items():
+        print(f"q={HQ_QUALITY} encode, {name}: equal to 16 at once {es == hq_rgb}")
+        if es != hq_rgb:
+            raise AssertionError(f"q={HQ_QUALITY} bytes differ for {name}")
+    aan = TorchMPEG1IntraEncoder(quality=HQ_QUALITY, dct_impl="aan", device=dev).encode(frames)
+    ref_aan = MPEG1IntraEncoder(quality=HQ_QUALITY, dct_impl="aan", backend="numpy").encode(frames)
+    print(f"q={HQ_QUALITY} dct_impl='aan': {len(aan)} B, equal to the numpy reference {aan == ref_aan}")
+    if aan != ref_aan:
+        raise AssertionError("dct_impl='aan' at high quality differs from the numpy reference")
+
+    # ---- 9. compat mode --------------------------------------------------
+    reset_launches()
+    t0 = time.perf_counter()
+    c_gold, c_dumps = encode_compat(gold_frames, COMPAT_QUALITY, device=dev)
+    c_many, c_many_dumps = encode_compat(compat_frames, COMPAT_QUALITY, device=dev)
+    compat_s = time.perf_counter() - t0
+    compat_launches = read_launches()
+    _check_launches(f"compat path (30 + {len(compat_frames)} frames, {compat_s:.2f} s)",
+                    compat_launches, ("vlc_compat_fused4", "pack_fused4"),
+                    ("vlc_compat_slots", "vlc_fused4", "vlc_levels4"))
+    reset_launches()
+    c_debug, _ = encode_compat(gold_frames, COMPAT_QUALITY, device=dev, debug_checks=True)
+    debug_launches = read_launches()
+    _check_launches("compat path with debug_checks (30 frames)", debug_launches,
+                    ("vlc_compat_slots", "pack_fused4"), ("vlc_compat_fused4",))
+
+    md5_ok = all(hashlib.md5(d).hexdigest() == gold_md5[f"image_{i + 1}.bit"]
+                 for i, d in enumerate(c_dumps))
+    print(f"compat, golden frames: {len(c_gold)} B, golden {len(gold_mpeg)} B, equal "
+          f"{c_gold == gold_mpeg}, debug_checks equal {c_debug == gold_mpeg}, dump md5s {md5_ok}")
+    if c_gold != gold_mpeg or c_debug != gold_mpeg or not md5_ok:
+        raise AssertionError("compat output differs from the golden stream or dumps")
+    t0 = time.perf_counter()
+    r_many, r_many_dumps = encode_compat_reference(compat_frames, COMPAT_QUALITY, backend="numpy")
+    print(f"numpy reference encode_compat, {len(compat_frames)} frames: "
+          f"{time.perf_counter() - t0:.2f} s on the host")
+    print(f"compat, {len(compat_frames)} frames: {len(c_many)} B, reference {len(r_many)} B, "
+          f"equal {c_many == r_many}, dumps equal {c_many_dumps == r_many_dumps}")
+    if c_many != r_many or c_many_dumps != r_many_dumps:
+        raise AssertionError("compat output differs from the numpy reference")
+
+    # ---- 10. steady-state times, q=85 and compat -------------------------
+    big = compat_planes[f"{len(compat_frames)} frames"]
+    for name, kernel, twin, args in (
+        ("vlc_levels4", cuda_vlc_levels.vlc_levels4, cuda_vlc_levels.vlc_levels4_plain,
+         (*hq_in, luts)),
+        ("vlc_compat_fused4", cuda_vlc_compat.vlc_compat_fused4,
+         cuda_vlc_compat.vlc_compat_fused4_plain, (*big, sq, cluts)),
+        ("vlc_compat_slots", cuda_vlc_compat.vlc_compat_slots,
+         cuda_vlc_compat.vlc_compat_slots_plain, (*big, sq, cluts)),
+    ):
+        times[name] = (_event_ms(torch, lambda: kernel(*args), 20),
+                       _event_ms(torch, lambda: twin(*args), 3))
+        where = (f"16x1080p q={HQ_QUALITY}" if name == "vlc_levels4"
+                 else f"{len(compat_frames)} frames")
+        print(f"{name} at {where}: kernel {times[name][0]:.4f} ms, "
+              f"plain twin {times[name][1]:.4f} ms {tag}")
+    for label, fn, n in (
+        (f"encode 16x1080p q={HQ_QUALITY}", lambda: hq.encode(frames), BATCH),
+        (f"encode_from_planes 16x1080p q={HQ_QUALITY}",
+         lambda: hq.encode_from_planes(jy, jcb, jcr), BATCH),
+        (f"encode_compat {len(compat_frames)} x 400x600 q={COMPAT_QUALITY}",
+         lambda: encode_compat(compat_frames, COMPAT_QUALITY, device=dev), len(compat_frames)),
+    ):
+        fps, ms = _frames_per_s(torch, fn, n, 3)
+        print(f"{label}: {fps:.2f} frames/s ({ms:.2f} ms per call) {tag}")
+
+    src = "ec504_imageencoder_tpu_torch/csrc/"
+    rows = [
+        ("vlc_fused4", "vlc_fused4.cu", "ec504_imageencoder_tpu/ops/pallas_vlc.py:556",
+         launches, b1_err),
+        ("pack_fused4", "pack_fused4.cu", "ec504_imageencoder_tpu/ops/pallas_pack.py:763",
+         launches, b2_err),
+        ("vlc_levels4", "vlc_levels4.cu", "ec504_imageencoder_tpu/ops/pallas_vlc.py:222",
+         hq_launches, b3_err),
+        ("vlc_compat_slots", "vlc_compat.cu", "ec504_imageencoder_tpu/ops/pallas_vlc.py:851",
+         debug_launches, b4a_err),
+        ("vlc_compat_fused4", "vlc_compat.cu", "ec504_imageencoder_tpu/ops/pallas_vlc.py:859",
+         compat_launches, b4b_err),
+    ]
     kernels = [
-        {"name": "vlc_fused4", "route": "cuda",
-         "source": "ec504_imageencoder_tpu_torch/csrc/vlc_fused4.cu",
-         "replaces": "ec504_imageencoder_tpu/ops/pallas_vlc.py:556",
-         "launches": launches["vlc_fused4"], "max_abs_err": b1_err,
-         "ms": times["vlc_fused4"][0], "plain_ms": times["vlc_fused4"][1]},
-        {"name": "pack_fused4", "route": "cuda",
-         "source": "ec504_imageencoder_tpu_torch/csrc/pack_fused4.cu",
-         "replaces": "ec504_imageencoder_tpu/ops/pallas_pack.py:763",
-         "launches": launches["pack_fused4"], "max_abs_err": b2_err,
-         "ms": times["pack_fused4"][0], "plain_ms": times["pack_fused4"][1]},
+        {"name": name, "route": "cuda", "source": src + cu, "replaces": replaces,
+         "launches": counts[name], "max_abs_err": err,
+         "ms": times[name][0], "plain_ms": times[name][1]}
+        for name, cu, replaces, counts, err in rows
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,209 @@
+// Device code shared by the VLC kernels (vlc_fused4.cu, vlc_levels4.cu,
+// vlc_compat.cu): the reference's integer AAN forward DCT, the VLC table
+// layout in shared memory, the correct-mode DC and AC slot emission, and
+// the exact 4:1 slot fusion with its stream-order store.
+//
+// Every function mirrors a function of the PyTorch twins (ops/dct.py,
+// ops/vlc_device.py, ops/bitpack.py::fuse4), which mirror the reference
+// package; the kernels are held against the twins exactly.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace vlc {
+
+constexpr int kAcRuns = 32;    // run 0..31
+constexpr int kAcLevels = 41;  // |level| 0..40
+constexpr int kDcSizes = 9;
+
+// AAN constants (reference ops/dct.py)
+constexpr int C1 = 1004, S1 = 200, C3 = 851, S3 = 569;
+constexpr int R2C6 = 554, R2S6 = 1337, R2 = 181;
+
+// Stages 1-3 of the 8-point AAN transform (ops/dct.py::_aan_butterfly):
+// n = (e0, e4, e2, e6, o1, o5, o7, o3).  Plain int arithmetic: products
+// wrap as in int32 and >> of a negative int is arithmetic on nvcc.
+__device__ __forceinline__ void aan_butterfly(const int a[8], int n[8]) {
+  int s8 = a[7] + a[0], d0 = a[0] - a[7];
+  int s7 = a[1] + a[6], d1 = a[1] - a[6];
+  int s6 = a[2] + a[5], d2 = a[2] - a[5];
+  int s5 = a[3] + a[4], d3 = a[3] - a[4];
+  int ex4 = s8 + s5, ex8 = s8 - s5, ex5 = s7 + s6, ex7 = s7 - s6;
+  int t6 = C1 * (d1 + d2);
+  int ox2 = (-S1 - C1) * d2 + t6;
+  int ox1 = (S1 - C1) * d1 + t6;
+  int t6b = C3 * (d0 + d3);
+  int ox3 = (-S3 - C3) * d3 + t6b;
+  int ox0 = (S3 - C3) * d0 + t6b;
+  int t5 = R2C6 * (ex7 + ex8);
+  n[0] = ex4 + ex5;
+  n[1] = ex4 - ex5;
+  n[2] = (R2S6 - R2C6) * ex8 + t5;
+  n[3] = (-R2S6 - R2C6) * ex7 + t5;
+  n[4] = ox3 + ox1;
+  n[5] = ox0 + ox2;
+  n[6] = ox3 - ox1;
+  n[7] = ox0 - ox2;
+}
+
+// In place: x[y][x] pixels -> x[v][u] coefficients (ops/dct.py::aan_dct).
+__device__ __forceinline__ void aan_dct(int x[8][8]) {
+  int a[8], n[8];
+#pragma unroll
+  for (int y = 0; y < 8; ++y) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) a[k] = x[y][k];
+    aan_butterfly(a, n);
+    x[y][0] = n[0];
+    x[y][4] = n[1];
+    x[y][2] = n[2] >> 10;
+    x[y][6] = n[3] >> 10;
+    x[y][7] = (n[4] - n[5]) >> 10;
+    x[y][1] = (n[4] + n[5]) >> 10;
+    x[y][3] = (n[6] * R2) >> 17;
+    x[y][5] = (n[7] * R2) >> 17;
+  }
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) a[k] = x[k][u];
+    aan_butterfly(a, n);
+    x[0][u] = (n[0] + 16) >> 3;
+    x[4][u] = (n[1] + 16) >> 3;
+    x[2][u] = (n[2] + 16384) >> 13;
+    x[6][u] = (n[3] + 16384) >> 13;
+    x[7][u] = (n[4] - n[5] + 16384) >> 13;
+    x[1][u] = (n[4] + n[5] + 16384) >> 13;
+    x[3][u] = ((n[6] >> 8) * R2 + 8192) >> 12;
+    x[5][u] = ((n[7] >> 8) * R2 + 8192) >> 12;
+  }
+}
+
+// The VLC tables in shared memory, each entry `code | len << 16`: the AC
+// run/level LUT (s_ac, [run][|level|], len 0 = no row) and the
+// dct_dc_size VLCs (s_dcc, [is_luma][size]).  Call with every thread of
+// the block, then __syncthreads().
+__device__ __forceinline__ void load_vlc_tables(
+    uint32_t* s_ac, uint32_t* s_dcc, const int32_t* ac_code, const int32_t* ac_len,
+    const int32_t* dc_code, const int32_t* dc_len, int tid, int nthreads) {
+  for (int i = tid; i < kAcRuns * kAcLevels; i += nthreads)
+    s_ac[i] = (uint32_t)ac_code[i] | ((uint32_t)ac_len[i] << 16);
+  for (int i = tid; i < 2 * kDcSizes; i += nthreads)
+    s_dcc[i] = (uint32_t)dc_code[i] | ((uint32_t)dc_len[i] << 16);
+}
+
+// One AC slot (ops/vlc_device.py::ac_codes_correct): `run` is the count of
+// zero levels since the previous nonzero one (the DC counts as nonzero).
+// Returns the code; its length goes to `len` (0: nothing emitted).
+__device__ __forceinline__ uint32_t emit_ac(int lvl, int& run, const uint32_t* s_ac,
+                                            int& len) {
+  if (lvl == 0) {
+    ++run;
+    len = 0;
+    return 0u;
+  }
+  const int al = abs(lvl);
+  const uint32_t s = lvl < 0;
+  const int r = run;
+  run = 0;
+  if (r == 0 && al == 1) {
+    len = 3;
+    return 6u | s;
+  }
+  const uint32_t t = (r < kAcRuns && al < kAcLevels) ? s_ac[r * kAcLevels + al] : 0u;
+  if ((t >> 16) > 0) {
+    len = (int)(t >> 16) + 1;
+    return ((t & 0xFFFFu) << 1) | s;
+  }
+  // escape: 6-bit escape, 6-bit TRUE run (up to 62), 8- or 16-bit level
+  const uint32_t base = 64u | (uint32_t)r;
+  const uint32_t lo = s ? (uint32_t)(256 - al) & 0xFFu : (uint32_t)al & 0xFFu;
+  if (al >= 128) {
+    len = 28;
+    return (base << 16) | ((s ? 0x80u : 0u) << 8) | lo;
+  }
+  len = 20;
+  return (base << 8) | lo;
+}
+
+// The DC slot of a correct-mode block (ops/vlc_device.py::
+// block_streams_correct64, slot 0): dct_dc_size VLC and the differential
+// bits of dc - pred (|diff| capped at 255 for the size, as the twin does),
+// with the macroblock header '11' in front where comp == 0.
+__device__ __forceinline__ uint32_t emit_dc(int dc, int pred, int comp, const uint32_t* s_dcc,
+                                            int& len) {
+  const int diff = dc - pred;
+  const int sz = 32 - __clz(min(abs(diff), 255));
+  const uint32_t dbits = (uint32_t)(diff >= 0 ? diff : diff + (1 << sz) - 1) & ((1u << sz) - 1u);
+  const uint32_t sc = s_dcc[(comp < 4 ? kDcSizes : 0) + sz];
+  uint32_t code = sz > 0 ? ((sc & 0xFFFFu) << sz) | dbits : (sc & 0xFFFFu);
+  len = (int)(sc >> 16) + sz;
+  if (comp == 0) {  // macroblock header '11'
+    code |= 3u << len;
+    len += 2;
+  }
+  return code;
+}
+
+// The four fused-slot outputs and their lengths, each (rows, NB * 16)
+// int32 in stream order.
+struct FusedOut {
+  int32_t* v0;
+  int32_t* v1;
+  int32_t* v2;
+  int32_t* v3;
+  int32_t* len;
+};
+
+// Exact 4:1 fusion (ops/bitpack.py::fuse4) of four slots of <= 30 bits:
+// the codes concatenated, <= 120 bits, as four 32-bit words (most
+// significant first), stored at fused slot o.
+__device__ __forceinline__ void store_fused4(const uint32_t c[4], const int l[4],
+                                             const FusedOut& out, size_t o) {
+  const uint64_t a = ((uint64_t)c[0] << l[1]) | c[1];
+  const uint64_t bb = ((uint64_t)c[2] << l[3]) | c[3];
+  const int lb = l[2] + l[3];  // <= 60
+  const uint64_t vlo = (a << lb) | bb;
+  const uint64_t vhi = lb > 0 ? a >> (64 - lb) : 0;
+  out.v0[o] = (int32_t)(uint32_t)(vhi >> 32);
+  out.v1[o] = (int32_t)(uint32_t)vhi;
+  out.v2[o] = (int32_t)(uint32_t)(vlo >> 32);
+  out.v3[o] = (int32_t)(uint32_t)vlo;
+  out.len[o] = l[0] + l[1] + l[2] + l[3];
+}
+
+// The 64 slots of one correct-mode block, 4:1-fused, stored at fused
+// slots obase .. obase + 15.  `levels(j, lv)` gives the zigzag levels of
+// slots 4j .. 4j+3 (slot 0's value is not read: code0/len0 are the DC
+// slot).  EOB '10' folds into slot 63.
+template <class Levels>
+__device__ __forceinline__ void emit_block_fused4(const Levels& levels, uint32_t code0,
+                                                  int len0, const uint32_t* s_ac,
+                                                  const FusedOut& out, size_t obase) {
+  int run = 0;
+  for (int j = 0; j < 16; ++j) {
+    int lv[4];
+    levels(j, lv);
+    uint32_t c[4];
+    int l[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = 4 * j + i;
+      if (k == 0) {
+        c[i] = code0;
+        l[i] = len0;
+        continue;
+      }
+      c[i] = emit_ac(lv[i], run, s_ac, l[i]);
+      if (k == 63) {  // end of block '10'
+        c[i] = (c[i] << 2) | 2u;
+        l[i] += 2;
+      }
+    }
+    store_fused4(c, l, out, obase + j);
+  }
+}
+
+}  // namespace vlc

@@ -25,115 +25,31 @@
 // because the zigzag scatter indexes them at run time.  Tables (AC run/
 // level LUT, DC size VLCs, zigzag, qscale*W) are copied to shared memory
 // once per block.  Pixel loads and slot stores are not coalesced: a later
-// PR can stage them through shared memory.
+// PR can stage them through shared memory.  The DCT, the DC/AC slot
+// emission and the fusion store are shared with the other VLC kernels
+// (vlc_emit.cuh).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "vlc_emit.cuh"
+
 namespace {
+
+using namespace vlc;
 
 constexpr int kThreads = 128;
 constexpr int kMaxNB = 6 * 256;   // width 4096
-constexpr int kAcRuns = 32;       // run 0..31
-constexpr int kAcLevels = 41;     // |level| 0..40
-constexpr int kDcSizes = 9;
 
-// AAN constants (reference ops/dct.py)
-constexpr int C1 = 1004, S1 = 200, C3 = 851, S3 = 569;
-constexpr int R2C6 = 554, R2S6 = 1337, R2 = 181;
-
-// Stages 1-3 of the 8-point AAN transform (ops/dct.py::_aan_butterfly):
-// n = (e0, e4, e2, e6, o1, o5, o7, o3).  Plain int arithmetic: products
-// wrap as in int32 and >> of a negative int is arithmetic on nvcc.
-__device__ __forceinline__ void aan_butterfly(const int a[8], int n[8]) {
-  int s8 = a[7] + a[0], d0 = a[0] - a[7];
-  int s7 = a[1] + a[6], d1 = a[1] - a[6];
-  int s6 = a[2] + a[5], d2 = a[2] - a[5];
-  int s5 = a[3] + a[4], d3 = a[3] - a[4];
-  int ex4 = s8 + s5, ex8 = s8 - s5, ex5 = s7 + s6, ex7 = s7 - s6;
-  int t6 = C1 * (d1 + d2);
-  int ox2 = (-S1 - C1) * d2 + t6;
-  int ox1 = (S1 - C1) * d1 + t6;
-  int t6b = C3 * (d0 + d3);
-  int ox3 = (-S3 - C3) * d3 + t6b;
-  int ox0 = (S3 - C3) * d0 + t6b;
-  int t5 = R2C6 * (ex7 + ex8);
-  n[0] = ex4 + ex5;
-  n[1] = ex4 - ex5;
-  n[2] = (R2S6 - R2C6) * ex8 + t5;
-  n[3] = (-R2S6 - R2C6) * ex7 + t5;
-  n[4] = ox3 + ox1;
-  n[5] = ox0 + ox2;
-  n[6] = ox3 - ox1;
-  n[7] = ox0 - ox2;
-}
-
-// In place: x[y][x] pixels -> x[v][u] coefficients (ops/dct.py::aan_dct).
-__device__ __forceinline__ void aan_dct(int x[8][8]) {
-  int a[8], n[8];
+// The zigzag levels of a thread's block, in its column of s_lv: slot k
+// at col[k * kThreads].
+struct ColumnLevels {
+  const int* col;
+  __device__ __forceinline__ void operator()(int j, int lv[4]) const {
 #pragma unroll
-  for (int y = 0; y < 8; ++y) {
-#pragma unroll
-    for (int k = 0; k < 8; ++k) a[k] = x[y][k];
-    aan_butterfly(a, n);
-    x[y][0] = n[0];
-    x[y][4] = n[1];
-    x[y][2] = n[2] >> 10;
-    x[y][6] = n[3] >> 10;
-    x[y][7] = (n[4] - n[5]) >> 10;
-    x[y][1] = (n[4] + n[5]) >> 10;
-    x[y][3] = (n[6] * R2) >> 17;
-    x[y][5] = (n[7] * R2) >> 17;
+    for (int i = 0; i < 4; ++i) lv[i] = col[(4 * j + i) * kThreads];
   }
-#pragma unroll
-  for (int u = 0; u < 8; ++u) {
-#pragma unroll
-    for (int k = 0; k < 8; ++k) a[k] = x[k][u];
-    aan_butterfly(a, n);
-    x[0][u] = (n[0] + 16) >> 3;
-    x[4][u] = (n[1] + 16) >> 3;
-    x[2][u] = (n[2] + 16384) >> 13;
-    x[6][u] = (n[3] + 16384) >> 13;
-    x[7][u] = (n[4] - n[5] + 16384) >> 13;
-    x[1][u] = (n[4] + n[5] + 16384) >> 13;
-    x[3][u] = ((n[6] >> 8) * R2 + 8192) >> 12;
-    x[5][u] = ((n[7] >> 8) * R2 + 8192) >> 12;
-  }
-}
-
-// One AC slot (ops/vlc_device.py::ac_codes_correct): `run` is the count of
-// zero levels since the previous nonzero one (the DC counts as nonzero).
-// Returns the code; its length goes to `len` (0: nothing emitted).
-__device__ __forceinline__ uint32_t emit_ac(int lvl, int& run, const uint32_t* s_ac,
-                                            int& len) {
-  if (lvl == 0) {
-    ++run;
-    len = 0;
-    return 0u;
-  }
-  const int al = abs(lvl);
-  const uint32_t s = lvl < 0;
-  const int r = run;
-  run = 0;
-  if (r == 0 && al == 1) {
-    len = 3;
-    return 6u | s;
-  }
-  const uint32_t t = (r < kAcRuns && al < kAcLevels) ? s_ac[r * kAcLevels + al] : 0u;
-  if ((t >> 16) > 0) {
-    len = (int)(t >> 16) + 1;
-    return ((t & 0xFFFFu) << 1) | s;
-  }
-  // escape: 6-bit escape, 6-bit TRUE run (up to 62), 8- or 16-bit level
-  const uint32_t base = 64u | (uint32_t)r;
-  const uint32_t lo = s ? (uint32_t)(256 - al) & 0xFFu : (uint32_t)al & 0xFFu;
-  if (al >= 128) {
-    len = 28;
-    return (base << 16) | ((s ? 0x80u : 0u) << 8) | lo;
-  }
-  len = 20;
-  return (base << 8) | lo;
-}
+};
 
 __device__ __forceinline__ const uint8_t* block_origin(
     const uint8_t* y, const uint8_t* cb, const uint8_t* cr, int b, int my,
@@ -170,9 +86,9 @@ vlc_fused4_kernel(const uint8_t* __restrict__ y, const uint8_t* __restrict__ cb,
   const int nb = (W / 16) * 6;
   const size_t kf = (size_t)nb * 16;
 
-  for (int i = tid; i < kAcRuns * kAcLevels; i += kThreads)
-    s_ac[i] = (uint32_t)ac_code[i] | ((uint32_t)ac_len[i] << 16);
-  if (tid < 2 * kDcSizes) s_dcc[tid] = (uint32_t)dc_code[tid] | ((uint32_t)dc_len[tid] << 16);
+  const FusedOut out{out_v0, out_v1, out_v2, out_v3, out_len};
+
+  load_vlc_tables(s_ac, s_dcc, ac_code, ac_len, dc_code, dc_len, tid, kThreads);
   if (tid < 64) {
     s_qw[tid] = qw[tid];
     s_zpos[zigzag[tid]] = tid;
@@ -217,49 +133,10 @@ vlc_fused4_kernel(const uint8_t* __restrict__ y, const uint8_t* __restrict__ cb,
     // previous same-component DC in stream order, 128 at slice start
     const int back = comp == 0 ? 3 : (comp >= 4 ? 6 : 1);
     const int pred = n >= back ? s_dc[n - back] : 128;
-    const int diff = dc - pred;
-    const int sz = 32 - __clz(abs(diff));
-    const uint32_t dbits = (uint32_t)(diff >= 0 ? diff : diff + (1 << sz) - 1) & ((1u << sz) - 1u);
-    const uint32_t sc = s_dcc[(comp < 4 ? kDcSizes : 0) + sz];
-    uint32_t code = sz > 0 ? ((sc & 0xFFFFu) << sz) | dbits : (sc & 0xFFFFu);
-    int len = (int)(sc >> 16) + sz;
-    if (comp == 0) {  // macroblock header '11'
-      code |= 3u << len;
-      len += 2;
-    }
-
-    int run = 0;
-    const size_t obase = (size_t)row * kf + (size_t)n * 16;
-    for (int j = 0; j < 16; ++j) {
-      uint32_t c[4];
-      int l[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int k = 4 * j + i;
-        if (k == 0) {
-          c[i] = code;
-          l[i] = len;
-          continue;
-        }
-        c[i] = emit_ac(s_lv[k][tid], run, s_ac, l[i]);
-        if (k == 63) {  // end of block '10'
-          c[i] = (c[i] << 2) | 2u;
-          l[i] += 2;
-        }
-      }
-      // exact 4:1 fusion: the four codes concatenated, <= 120 bits
-      const uint64_t a = ((uint64_t)c[0] << l[1]) | c[1];
-      const uint64_t bb = ((uint64_t)c[2] << l[3]) | c[3];
-      const int lb = l[2] + l[3];  // <= 60
-      const uint64_t vlo = (a << lb) | bb;
-      const uint64_t vhi = lb > 0 ? a >> (64 - lb) : 0;
-      const size_t o = obase + j;
-      out_v0[o] = (int32_t)(uint32_t)(vhi >> 32);
-      out_v1[o] = (int32_t)(uint32_t)vhi;
-      out_v2[o] = (int32_t)(uint32_t)(vlo >> 32);
-      out_v3[o] = (int32_t)(uint32_t)vlo;
-      out_len[o] = l[0] + l[1] + l[2] + l[3];
-    }
+    int len0;
+    const uint32_t code0 = emit_dc(dc, pred, comp, s_dcc, len0);
+    emit_block_fused4(ColumnLevels{&s_lv[0][tid]}, code0, len0, s_ac, out,
+                      (size_t)row * kf + (size_t)n * 16);
   }
 }
 

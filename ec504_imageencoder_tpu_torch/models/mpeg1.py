@@ -1,10 +1,19 @@
 """Correct-mode (ISO 11172-2) MPEG-1 intra encoder on PyTorch.
 
 The device part of `ec504_imageencoder_tpu.models.mpeg1` on torch tensors:
-colour conversion and 4:2:0 subsampling, then kernel B1 (DCT, quantize,
-zigzag, DC prediction, VLC emission, 4:1 fusion), kernel B2 (bit
-placement into big-endian slice buffers, 38 bits in) and the OR of the
-slice headers.  On the CPU the kernels' plain twins run instead.
+colour conversion and 4:2:0 subsampling, then the slots, then kernel B2
+(bit placement into big-endian slice buffers, 38 bits in) and the OR of
+the slice headers.  The slots come from one of the two DCTs of the
+reference (`dct_impl`):
+
+* "aan", the integer AAN DCT: kernel B1 (DCT, quantize, zigzag, DC
+  prediction, VLC emission, 4:1 fusion) reads the planes;
+* "f32", the f32 matrix DCT of the high-quality path: blockize,
+  `matmul_dct`, quantize, zigzag and DC prediction in PyTorch
+  (`f32_levels`, the reference's `_generic_pipeline_from_planes`), then
+  kernel B3 (VLC emission, 4:1 fusion).
+
+On the CPU the kernels' plain twins run instead.
 
 The host part (slice sizing, regrow, header builders, `assemble`) is the
 reference's own `MPEG1IntraEncoder`, which `TorchMPEG1IntraEncoder`
@@ -21,18 +30,43 @@ from ec504_imageencoder_tpu_torch.device import resolve_device
 from ec504_imageencoder_tpu_torch.ops.bitpack import or_slice_headers
 from ec504_imageencoder_tpu_torch.ops.color import rgb_to_ycbcr, subsample_420
 from ec504_imageencoder_tpu_torch.ops.cuda_pack import pack_fused4
-from ec504_imageencoder_tpu_torch.ops.cuda_vlc import Luts, vlc_fused4
+from ec504_imageencoder_tpu_torch.ops.cuda_vlc import Luts, blockize, vlc_fused4
+from ec504_imageencoder_tpu_torch.ops.cuda_vlc_levels import vlc_levels4
+from ec504_imageencoder_tpu_torch.ops.dct import matmul_dct
+from ec504_imageencoder_tpu_torch.ops.quant import quantize_intra
+from ec504_imageencoder_tpu_torch.ops.vlc_device import dc_predictors
+from ec504_imageencoder_tpu_torch.ops.zigzag import zigzag_scan
 from ec504_imageencoder_tpu_torch.shared import MPEG1IntraEncoder, slice_bytes_bucket
 
 SLICE_HEADER_BITS = 38  # slice start code (32) + quantizer_scale (5) + extra_bit (1)
+DCT_IMPLS = ("aan", "f32")
+
+
+def f32_levels(y, cb, cr, qw, zigzag):
+    """The f32-DCT half of the reference's `_generic_pipeline_from_planes`:
+    padded planes -> (levels (B * mbh, mbw * 6, 64) int32, zigzag order,
+    slot 0 the absolute quantized DC; preds (B * mbh, mbw * 6) int32 DC
+    predictors), the input of kernel B3."""
+    blocks = blockize(y, cb, cr)                       # (B, mbh, mbw, 6, 8, 8)
+    bsz, mbh, mbw = blocks.shape[:3]
+    dc, lvl = quantize_intra(matmul_dct(blocks), qw)
+    zz = zigzag_scan(lvl, zigzag)
+    lane = torch.arange(64, device=y.device)
+    zz = torch.where(lane == 0, dc[..., None], zz)
+    r = bsz * mbh
+    return zz.reshape(r, mbw * 6, 64), dc_predictors(dc).reshape(r, mbw * 6)
 
 
 class EncodeCore(nn.Module):
     """Quantizer state and VLC tables as buffers; forward runs the device
-    pipeline from padded 4:2:0 planes to slice segments."""
+    pipeline from padded 4:2:0 planes to slice segments with the DCT
+    `dct_impl` ("aan" or "f32")."""
 
-    def __init__(self, intra_q: np.ndarray, qscale: int):
+    def __init__(self, intra_q: np.ndarray, qscale: int, dct_impl: str):
         super().__init__()
+        if dct_impl not in DCT_IMPLS:
+            raise ValueError(f"dct_impl must be 'aan' or 'f32', got {dct_impl!r}")
+        self.dct_impl = dct_impl
         self.qscale = int(qscale)
         iq = torch.as_tensor(np.asarray(intra_q), dtype=torch.int32)
         self.register_buffer("intra_q", iq)
@@ -53,7 +87,11 @@ class EncodeCore(nn.Module):
             raise ValueError(f"max_slice_bytes must be a multiple of 4, got {max_slice_bytes}")
         bsz, h, _ = y.shape
         mbh = h // 16
-        v0, v1, v2, v3, flens = vlc_fused4(y, cb, cr, self.qw, self.luts())
+        if self.dct_impl == "aan":
+            v0, v1, v2, v3, flens = vlc_fused4(y, cb, cr, self.qw, self.luts())
+        else:
+            levels, preds = f32_levels(y, cb, cr, self.qw, self.zigzag)
+            v0, v1, v2, v3, flens = vlc_levels4(levels, preds, self.luts())
         seg, nbits = pack_fused4(
             v0, v1, v2, v3, flens, max_slice_bytes // 4, bit_offset=SLICE_HEADER_BITS
         )
@@ -78,9 +116,12 @@ class TorchMPEG1IntraEncoder(MPEG1IntraEncoder):
     `device`: the CUDA kernels on a GPU, their plain twins on the CPU.
 
     encode(), encode_from_planes() and encode_to_file() are the reference's
-    own; the byte stream equals the reference's for the same settings.
-    Only the integer AAN DCT is ported: dct_impl "f32" (what "auto" picks
-    at quality >= 70) raises NotImplementedError."""
+    own.  dct_impl is the reference's: "auto" picks "f32" at quality >= 70
+    and "aan" below.  With "aan" the byte stream equals the reference's for
+    the same settings.  With "f32" it equals the reference's numpy backend
+    (the port repeats its f32 operations) on every device and batch split;
+    the reference's XLA backend may break an f32 tie the other way, and
+    decodes to the same PSNR within 0.05 dB."""
 
     def __init__(self, quality: int = 50, frame_rate_code: int = 3,
                  gop_size: int = 15, max_slice_bytes: int | None = None,
@@ -91,13 +132,7 @@ class TorchMPEG1IntraEncoder(MPEG1IntraEncoder):
             max_slice_bytes=max_slice_bytes, backend="torch", dct_impl=dct_impl,
             color_range=color_range, grow_slices=grow_slices,
         )
-        if self.dct_impl == "f32":
-            raise NotImplementedError(
-                "the f32 matmul DCT (dct_impl='f32', chosen by 'auto' at "
-                "quality >= 70) is not ported yet (ROADMAP A5); pass "
-                "dct_impl='aan'"
-            )
-        if self.dct_impl != "aan":
+        if self.dct_impl not in DCT_IMPLS:
             raise ValueError(f"dct_impl must be 'auto', 'aan' or 'f32', got {dct_impl!r}")
         self.device = resolve_device(device)
         self._set_quant(self.intra_q, self.qscale)
@@ -105,7 +140,7 @@ class TorchMPEG1IntraEncoder(MPEG1IntraEncoder):
     def _set_quant(self, intra_q: np.ndarray, qscale: int) -> None:
         self.intra_q = np.array(intra_q, dtype=np.int32)
         self.qscale = int(qscale)
-        self.core = EncodeCore(self.intra_q, self.qscale).to(self.device)
+        self.core = EncodeCore(self.intra_q, self.qscale, self.dct_impl).to(self.device)
 
     @classmethod
     def from_reference(cls, enc: MPEG1IntraEncoder, device) -> "TorchMPEG1IntraEncoder":

@@ -2,9 +2,10 @@
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled for Hopper
 (`sm_90a`) into `build/lib<name>_<hash>.so` inside this package (listed
-in `.gitignore`).  The hash covers the source and the flags, so an edited
-source is rebuilt.  Nothing is built or loaded when this module is
-imported: only `load()` runs nvcc.
+in `.gitignore`).  The hash covers the source, every header under
+`csrc/` (the kernels share device code through them) and the flags, so
+an edited source or header is rebuilt.  Nothing is built or loaded when
+this module is imported: only `load()` runs nvcc.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ NVCC_FLAGS = (
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}
-# name -> (seconds nvcc took, ptxas report); only for builds this process ran
+# name -> (seconds from the start of its `build` call until its nvcc
+# finished, ptxas report); only for builds this process ran
 build_info: dict[str, tuple[float, str]] = {}
 
 
@@ -44,6 +46,50 @@ def _nvcc() -> str:
     return found
 
 
+def source_digest(src: Path, csrc: Path = CSRC) -> str:
+    """Hex digest of `src`, of every header (`*.cuh`, `*.h`) in `csrc`
+    and of the nvcc flags: the key of the built library."""
+    h = hashlib.sha256(src.read_bytes())
+    for hdr in sorted((*csrc.glob("*.cuh"), *csrc.glob("*.h"))):
+        h.update(hdr.name.encode() + b"\0" + hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()
+
+
+def _library(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    return BUILD_DIR / f"lib{name}_{source_digest(src)[:16]}.so"
+
+
+def build(names) -> None:
+    """Compile every `csrc/<name>.cu` of `names` whose library is missing,
+    one nvcc process per source, all started together; raise if any
+    fails."""
+    todo = [(n, _library(n)) for n in names]
+    todo = [(n, so) for n, so in todo if not so.exists()]
+    if not todo:
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    procs = []
+    for name, so in todo:
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, so, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, so, tmp, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{out}{err}")
+            continue
+        os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+        build_info[name] = (time.perf_counter() - t0, err + out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def load(name: str, argtypes: dict[str, list]) -> ctypes.CDLL:
     """Build (if needed) and load `csrc/<name>.cu`; declare the C entry
     points in `argtypes` (each returns an int CUDA error code) and a
@@ -51,25 +97,8 @@ def load(name: str, argtypes: dict[str, list]) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    so = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on {src} (exit {proc.returncode}):\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
-        build_info[name] = (time.perf_counter() - t0, proc.stderr + proc.stdout)
-    lib = ctypes.CDLL(str(so))
+    build([name])
+    lib = ctypes.CDLL(str(_library(name)))
     for fn, types in argtypes.items():
         f = getattr(lib, fn)
         f.argtypes = types

@@ -52,10 +52,29 @@ class Luts(NamedTuple):
 
     @classmethod
     def default(cls, device) -> "Luts":
+        """The ISO tables of correct mode (B1, B3)."""
         return cls(*(t.to(device) for t in (
             tables.ZIGZAG_GATHER, tables.AC_CODE, tables.AC_LEN,
             tables.DC_CODE, tables.DC_LEN,
         )))
+
+    @classmethod
+    def compat(cls, device) -> "Luts":
+        """The same with the compat AC table (B4)."""
+        return cls(*(t.to(device) for t in (
+            tables.ZIGZAG_GATHER, tables.AC_CODE_COMPAT, tables.AC_LEN_COMPAT,
+            tables.DC_CODE, tables.DC_LEN,
+        )))
+
+    def check(self, device) -> None:
+        """Raise unless every table is int32 of its shape on `device`."""
+        want = {"zigzag": (64,), "ac_code": (32, 41), "ac_len": (32, 41),
+                "dc_code": (2, 9), "dc_len": (2, 9)}
+        for name, t in zip(self._fields, self):
+            if t.dtype != torch.int32 or tuple(t.shape) != want[name]:
+                raise TypeError(f"{name} must be int32 {want[name]}, got {t.dtype} {tuple(t.shape)}")
+            if t.device != device:
+                raise ValueError(f"{name} is on {t.device}, the input on {device}")
 
 
 def load_kernel():
@@ -63,7 +82,7 @@ def load_kernel():
     return _build.load("vlc_fused4", _ARGTYPES)
 
 
-def _to_i32_bits(x: torch.Tensor) -> torch.Tensor:
+def to_i32_bits(x: torch.Tensor) -> torch.Tensor:
     """int64 holding u32 values -> int32 holding the same bits."""
     return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
@@ -97,7 +116,7 @@ def vlc_fused4_plain(y, cb, cr, qw, luts: Luts):
     )
     r = bsz * mbh
     fused = fuse4(codes.reshape(r, -1), lens.reshape(r, -1))
-    return tuple(_to_i32_bits(t) for t in fused)
+    return tuple(to_i32_bits(t) for t in fused)
 
 
 def _check(y, cb, cr, qw, luts: Luts) -> None:
@@ -114,14 +133,19 @@ def _check(y, cb, cr, qw, luts: Luts) -> None:
     for name, t in (("y", y), ("cb", cb), ("cr", cr)):
         if t.dtype != torch.uint8:
             raise TypeError(f"{name} must be uint8, got {t.dtype}")
-    want = {"qw": (8, 8), "zigzag": (64,), "ac_code": (32, 41), "ac_len": (32, 41),
-            "dc_code": (2, 9), "dc_len": (2, 9)}
-    for name, t in (("qw", qw), *zip(Luts._fields, luts)):
-        if t.dtype != torch.int32 or tuple(t.shape) != want[name]:
-            raise TypeError(f"{name} must be int32 {want[name]}, got {t.dtype} {tuple(t.shape)}")
-    for name, t in (("cb", cb), ("cr", cr), ("qw", qw), *zip(Luts._fields, luts)):
+    check_matrix("qw", qw, y.device)
+    luts.check(y.device)
+    for name, t in (("cb", cb), ("cr", cr)):
         if t.device != y.device:
             raise ValueError(f"{name} is on {t.device}, y on {y.device}")
+
+
+def check_matrix(name: str, m: torch.Tensor, device) -> None:
+    """Raise unless `m` is an (8, 8) int32 matrix on `device`."""
+    if m.dtype != torch.int32 or tuple(m.shape) != (8, 8):
+        raise TypeError(f"{name} must be int32 (8, 8), got {m.dtype} {tuple(m.shape)}")
+    if m.device != device:
+        raise ValueError(f"{name} is on {m.device}, the input on {device}")
 
 
 def vlc_fused4(y, cb, cr, qw, luts: Luts):

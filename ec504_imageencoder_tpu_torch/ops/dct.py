@@ -1,15 +1,20 @@
-"""Exact int32 AAN forward DCT, bit-identical to the reference's.
+"""The two forward DCTs of the reference's `ops/dct.py`.
 
-Same constants, same arithmetic right shifts (torch `>>` on int32 is
-arithmetic, as in numpy, XLA and nvcc) and same rounding biases as
-`ec504_imageencoder_tpu.ops.dct.aan_dct` and the in-kernel
-`_aan_f_rows_a` of `ops/pallas_vlc.py`.  int32 products wrap exactly as
-they do there.
+* `aan_dct`: the exact int32 AAN transform, bit-identical to the
+  reference's.  Same constants, same arithmetic right shifts (torch `>>`
+  on int32 is arithmetic, as in numpy, XLA and nvcc) and same rounding
+  biases as `ec504_imageencoder_tpu.ops.dct.aan_dct` and the in-kernel
+  `_aan_f_rows_a` of `ops/pallas_vlc.py`.  int32 products wrap exactly as
+  they do there.
+* `matmul_dct`: the f32 orthonormal DCT of the high-quality path
+  (quality >= 70).
 """
 
 from __future__ import annotations
 
 import torch
+
+from ec504_imageencoder_tpu_torch.shared import dct_matrix_f32
 
 _C1 = 1004   # cos(pi/16)  << 10
 _S1 = 200    # sin(pi/16)  << 10
@@ -66,3 +71,34 @@ def aan_dct(blocks: torch.Tensor) -> torch.Tensor:
         (o1 - o5 + 16384) >> 13,
     ]
     return torch.stack(out, dim=-2)
+
+
+# orthonormal 8-point DCT-II basis, the reference's own f32 numbers
+_D = torch.from_numpy(dct_matrix_f32())
+
+
+def matmul_dct(blocks: torch.Tensor) -> torch.Tensor:
+    """(..., 8, 8) pixel blocks -> (..., 8v, 8u) int32: the orthonormal f32
+    DCT D @ X @ D.T of the reference's `ops/dct.py::matmul_dct`, rounded
+    half away from zero (not half to even, as `torch.round` would).
+
+    The arithmetic is the reference's host einsum (numpy's
+    "vy,...yx,ux->...vu") operation for operation: each coefficient sums
+    (d[v, y] * x[y, x]) * d[u, x] over y, then x, in f32, every product
+    and every sum rounded on its own.  Each step is a separate elementwise
+    op: no GEMM, no fused multiply-add and no reduction kernel whose order
+    could depend on the shape.  So the bits are numpy's, on the CPU and on
+    a GPU alike, for every batch split, and no TF32 or
+    float32-matmul-precision setting can change them.  (The integer DCT
+    coefficients often sit exactly on a .5 tie, which each f32
+    formulation breaks its own way; matching one reference's breaks keeps
+    the port's bytes equal to it.)"""
+    d = _D.to(blocks.device)
+    x = blocks.to(torch.float32)
+    f = None
+    for y in range(8):
+        p = d[:, y, None] * x[..., y:y + 1, :]   # p[..., v, x] = d[v, y] * x[..., y, x]
+        for k in range(8):
+            t = p[..., :, k:k + 1] * d[:, k]     # t[..., v, u] = p[..., v, k] * d[u, k]
+            f = t if f is None else f.add_(t)
+    return torch.where(f >= 0, torch.floor(f + 0.5), torch.ceil(f - 0.5)).to(torch.int32)

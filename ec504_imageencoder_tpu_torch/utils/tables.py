@@ -21,6 +21,10 @@ AC_MAX_RUN = ref.MAX_RUN
 AC_MAX_LEVEL = ref.MAX_AC_LEVEL
 AC_CODE = torch.from_numpy(ref.AC_CODE_CORRECT.astype(np.int32))
 AC_LEN = torch.from_numpy(ref.AC_LEN_CORRECT.astype(np.int32))
+# the same for compat mode: the reference's run-0 off-by-one (|level| L of
+# run 0 holds the level-(L+1) code, L = 40 has no row) and its (16, 2) typo
+AC_CODE_COMPAT = torch.from_numpy(ref.AC_CODE_COMPAT.astype(np.int32))
+AC_LEN_COMPAT = torch.from_numpy(ref.AC_LEN_COMPAT.astype(np.int32))
 
 # dct_dc_size VLCs stacked as [is_luma, size 0..8] (row 0 chroma, row 1 luma)
 DC_CODE = torch.from_numpy(

@@ -7,16 +7,25 @@ JAX):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerance: exact (0) everywhere; the whole path is integer arithmetic.
+Tolerance: exact (0) everywhere: the kernels are integer arithmetic, and
+the f32 DCT in front of B3 is separate IEEE f32 multiplies and adds in the
+reference's numpy order, the same bits on the card as on the host.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from ec504_imageencoder_tpu_torch.models.mpeg1 import TorchMPEG1IntraEncoder
-from ec504_imageencoder_tpu_torch.ops import cuda_pack, cuda_vlc
-from ec504_imageencoder_tpu_torch.shared import MPEG1IntraEncoder
+from ec504_imageencoder_tpu_torch.models.encoder import encode_compat
+from ec504_imageencoder_tpu_torch.models.mpeg1 import TorchMPEG1IntraEncoder, f32_levels
+from ec504_imageencoder_tpu_torch.ops import cuda_pack, cuda_vlc, cuda_vlc_compat, cuda_vlc_levels
+from ec504_imageencoder_tpu_torch.ops.cuda_vlc import Luts
+from ec504_imageencoder_tpu_torch.ops.dct import matmul_dct
+from ec504_imageencoder_tpu_torch.shared import (
+    MPEG1IntraEncoder,
+    encode_compat_reference,
+    scale_quantization_matrix,
+)
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -88,3 +97,75 @@ def test_kernel_wrappers_reject_bad_input(cuda):
     v = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         cuda_pack.pack_fused4(v, v, v, v, v.t(), 16)
+
+
+@pytest.mark.parametrize("quality", [70, 85, 100])
+@pytest.mark.parametrize("shape", [(2, 32, 48), (1, 48, 4096), (3, 16, 16)])
+def test_levels_kernel_matches_twin(cuda, quality, shape):
+    rng = np.random.default_rng(quality * 7 + shape[2])
+    core = TorchMPEG1IntraEncoder(quality=quality, device=cuda).core
+    levels, preds = f32_levels(*_planes(rng, *shape, cuda), core.qw, core.zigzag)
+    got = cuda_vlc_levels.vlc_levels4(levels, preds, core.luts())
+    want = cuda_vlc_levels.vlc_levels4_plain(levels, preds, core.luts())
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_f32_dct_same_bits_on_card_and_host(cuda):
+    blocks = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (999, 8, 8), dtype=np.uint8))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        assert torch.equal(matmul_dct(blocks.to(cuda)).cpu(), matmul_dct(blocks))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.parametrize("quality", [1, 12, 50, 100])
+@pytest.mark.parametrize("shape", [(2, 150, 401), (1, 144, 96)])
+def test_compat_kernels_match_twins(cuda, quality, shape):
+    rng = np.random.default_rng(quality + shape[2])
+    planes = tuple(torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(cuda)
+                   for _ in range(3))
+    q = torch.from_numpy(scale_quantization_matrix(quality).astype(np.int32)).to(cuda)
+    luts = Luts.compat(cuda)
+    for kernel, twin in ((cuda_vlc_compat.vlc_compat_slots, cuda_vlc_compat.vlc_compat_slots_plain),
+                         (cuda_vlc_compat.vlc_compat_fused4, cuda_vlc_compat.vlc_compat_fused4_plain)):
+        got, want = kernel(*planes, q, luts), twin(*planes, q, luts)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_high_quality_and_compat_encoders(cuda, tmp_path):
+    rng = np.random.default_rng(4)
+    frames = rng.integers(0, 256, (2, 40, 56, 3), dtype=np.uint8)
+    cuda_vlc.launches = cuda_vlc_levels.launches = cuda_pack.launches = 0
+    got = TorchMPEG1IntraEncoder(quality=85, device=cuda).encode(frames)
+    assert cuda_vlc_levels.launches > 0 and cuda_pack.launches > 0 and cuda_vlc.launches == 0
+    assert got == MPEG1IntraEncoder(quality=85, backend="numpy").encode(frames)
+
+    frames = rng.integers(0, 256, (3, 150, 101, 3), dtype=np.uint8)
+    cuda_vlc_compat.launches_fused4 = cuda_vlc_compat.launches_slots = 0
+    want = encode_compat_reference(frames, 12, backend="numpy")
+    assert encode_compat(frames, 12, device=cuda) == want
+    assert encode_compat(frames, 12, device=cuda, debug_checks=True) == want
+    assert cuda_vlc_compat.launches_fused4 == cuda_vlc_compat.launches_slots == 1
+
+
+def test_new_wrappers_reject_bad_input(cuda):
+    lv = torch.zeros((2, 12, 64), dtype=torch.int32, device=cuda)
+    pr = torch.zeros((2, 12), dtype=torch.int32, device=cuda)
+    luts = Luts.default(cuda)
+    with pytest.raises(ValueError):
+        cuda_vlc_levels.vlc_levels4(lv[:, :10], pr[:, :10], luts)   # not whole MBs
+    with pytest.raises(ValueError):
+        cuda_vlc_levels.vlc_levels4(lv, pr.cpu(), luts)
+    shifted = torch.zeros(2 * 12 * 64 + 1, dtype=torch.int32, device=cuda)[1:].view(2, 12, 64)
+    with pytest.raises(ValueError):
+        cuda_vlc_levels.vlc_levels4(shifted, pr, luts)              # not 16-byte aligned
+    y = torch.zeros((1, 144, 96), dtype=torch.uint8, device=cuda)
+    q = torch.ones((8, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        cuda_vlc_compat.vlc_compat_fused4(y, y.cpu(), y, q, Luts.compat(cuda))
+    y_t = torch.zeros((1, 96, 144), dtype=torch.uint8, device=cuda).transpose(1, 2)
+    with pytest.raises(ValueError):
+        cuda_vlc_compat.vlc_compat_slots(y_t, y, y, q, Luts.compat(cuda))

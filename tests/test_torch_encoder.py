@@ -1,15 +1,21 @@
 """The port's encoder as a whole against the JAX encoder, on the CPU.
 
 `TorchMPEG1IntraEncoder.from_reference(MPEG1IntraEncoder(backend="jax"),
-"cpu")` runs the kernels' plain twins; its byte stream must equal the JAX
-encoder's for the same frames.  Tolerance: exact (byte-identical).
+"cpu")` runs the kernels' plain twins.  With the integer AAN DCT its byte
+stream must equal the JAX encoder's for the same frames (exact).  With the
+f32 DCT (what "auto" picks at quality >= 70) the reference promises equal
+bytes only within one backend: across backends an f32 rounding tie may
+fall the other way.  The port repeats the numpy backend's f32 operations,
+so its bytes equal the numpy encoder's; against the JAX (XLA) encoder the
+gate is decoded PSNR within 0.05 dB, and the port's own batch splits give
+equal bytes.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from ec504_imageencoder_tpu.models.decoder import decode_es, psnr
+from ec504_imageencoder_tpu.models.decoder import decode_es, decode_es_fast, psnr
 from ec504_imageencoder_tpu.models.mpeg1 import MPEG1IntraEncoder
 from ec504_imageencoder_tpu.syntax import headers
 from ec504_imageencoder_tpu_torch.device import resolve_device
@@ -99,10 +105,9 @@ def test_from_reference_copies_state():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="A5"):
-        TorchMPEG1IntraEncoder(quality=50, dct_impl="f32", device="cpu")
-    with pytest.raises(NotImplementedError, match="A5"):
-        TorchMPEG1IntraEncoder(quality=80, device="cpu")  # auto picks f32
+    assert TorchMPEG1IntraEncoder(quality=80, device="cpu").dct_impl == "f32"  # auto
+    with pytest.raises(ValueError, match="dct_impl"):
+        TorchMPEG1IntraEncoder(quality=80, dct_impl="int", device="cpu")
     port = TorchMPEG1IntraEncoder(quality=80, dct_impl="aan", device="cpu")
     with pytest.raises(NotImplementedError, match="A6"):
         port.encode_from_coeffs(None, None, None, 16, 16)
@@ -117,3 +122,70 @@ def test_cuda_device_is_never_replaced_by_the_cpu():
         TorchMPEG1IntraEncoder(quality=50, device="cuda")
     with pytest.raises(TypeError):
         TorchMPEG1IntraEncoder(quality=50)  # no default device
+
+
+def _psnrs(es, frames):
+    dec = decode_es_fast(es + headers.sequence_end())
+    assert len(dec) == len(frames)
+    return [psnr(f, d) for f, d in zip(frames, dec)]
+
+
+def _f32_frames():
+    """The reference's q=79 counterexample (numpy and XLA bytes differ on
+    it, tests/test_sharding.py) beside the odd-size natural frames."""
+    return np.random.default_rng(20261016 + 5).integers(0, 256, (1, 87, 44, 3), dtype=np.uint8)
+
+
+@pytest.mark.parametrize("quality", [70, 79, 85, 100])
+def test_f32_dct_psnr_matches_jax(odd_frames, quality):
+    ref, port = _pair(quality=quality)
+    assert port.dct_impl == ref.dct_impl == "f32"
+    for frames in (odd_frames, _f32_frames()):
+        got, want = _psnrs(port.encode(frames), frames), _psnrs(ref.encode(frames), frames)
+        assert max(abs(g - w) for g, w in zip(got, want)) < 0.05, (got, want)
+
+
+def test_f32_dct_counterexample_psnr():
+    """The reference's own q=79 counterexample: numpy and XLA give other
+    bytes and the same PSNR; the port lands within 0.05 dB of both."""
+    frames = np.random.default_rng(20260821).integers(0, 256, (1, 87, 44, 3), dtype=np.uint8)
+    port = TorchMPEG1IntraEncoder(quality=79, device="cpu")
+    got = _psnrs(port.encode(frames), frames)[0]
+    for backend in ("numpy", "jax"):
+        want = _psnrs(MPEG1IntraEncoder(quality=79, backend=backend).encode(frames), frames)[0]
+        assert abs(got - want) < 0.05, (backend, got, want)
+
+
+def test_f32_dct_planes_psnr_matches_jax(odd_frames):
+    ref, port = _pair(quality=85)
+    planes = _planes(odd_frames)
+    got = _psnrs(port.encode_from_planes(*planes), odd_frames)
+    want = _psnrs(ref.encode_from_planes(*planes), odd_frames)
+    assert max(abs(g - w) for g, w in zip(got, want)) < 0.05
+
+
+def test_aan_at_high_quality_is_byte_exact(odd_frames):
+    ref, port = _pair(quality=85, dct_impl="aan")
+    assert port.encode(odd_frames) == ref.encode(odd_frames)
+    planes = _planes(odd_frames)
+    assert port.encode_from_planes(*planes) == ref.encode_from_planes(*planes)
+
+
+def test_f32_dct_bytes_equal_across_batch_splits(odd_frames):
+    """The same bytes for the batch at once and frame by frame (with
+    first_frame_index), as the reference promises within one backend."""
+    frames = np.concatenate([odd_frames, odd_frames[:, ::-1]])
+    whole = TorchMPEG1IntraEncoder(quality=85, device="cpu").encode(frames)
+    enc = TorchMPEG1IntraEncoder(quality=85, device="cpu")
+    split = b"".join(enc.encode(frames[i:i + 1], first_frame_index=i) for i in range(len(frames)))
+    assert whole == split
+
+
+@pytest.mark.parametrize("quality", [70, 100])
+def test_f32_dct_bytes_equal_numpy_reference(odd_frames, quality):
+    """The port's f32 DCT repeats the reference's numpy einsum operation
+    for operation, so its bytes equal the host numpy encoder's (the
+    reference's own XLA backend may differ from both at f32 ties)."""
+    for frames in (odd_frames, _f32_frames()):
+        want = MPEG1IntraEncoder(quality=quality, backend="numpy").encode(frames)
+        assert TorchMPEG1IntraEncoder(quality=quality, device="cpu").encode(frames) == want

@@ -1,25 +1,44 @@
-"""Kernel B1's plain twin against the Pallas kernel it replaces.
+"""The VLC kernels' plain twins against the Pallas kernels they replace.
 
-`vlc_fused4` on CPU tensors runs its twin; the reference is
-`vlc_fused_slots_from_blocks_tpu(..., interpret=True)` followed by
-`fused_stack_to_stream`, fed the same planes in the reference's blockized
-layout.  All cases share one kernel shape (6 slice rows of 18 blocks), so
-the Pallas interpreter compiles once.  Tolerance: exact (0).
+Each wrapper on CPU tensors runs its twin; the reference is the Pallas
+kernel in interpret mode, fed the same input in its own layout:
+
+* B1 `vlc_fused4`: `vlc_fused_slots_from_blocks_tpu` + `fused_stack_to_stream`;
+* B3 `vlc_levels4`: `vlc_slots_tpu` + `fuse_slots_streamwise`;
+* B4a `vlc_compat_slots`: `vlc_compat_slots_from_blocks_tpu`;
+* B4b `vlc_compat_fused4`: `vlc_compat_fused_slots_from_blocks_tpu` +
+  `fused_stack_to_stream`.
+
+The cases of each kernel share one shape (6 slice rows of 18 blocks; 12
+compat rows of 54), so the Pallas interpreter compiles once per kernel.
+Tolerance: exact (0).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from ec504_imageencoder_tpu.models.encoder import compat_blockize_px64
 from ec504_imageencoder_tpu.models.mpeg1 import pad_planes_to_macroblocks, quality_to_quant
+from ec504_imageencoder_tpu.ops.dct import aan_dct_nb, dct_matrix_f32
 from ec504_imageencoder_tpu.ops.pallas_vlc import (
+    fuse_slots_streamwise,
     fused_stack_to_stream,
+    vlc_compat_fused_slots_from_blocks_tpu,
+    vlc_compat_slots_from_blocks_tpu,
     vlc_fused_slots_from_blocks_tpu,
+    vlc_slots_tpu,
 )
-from ec504_imageencoder_tpu_torch.ops import cuda_vlc
+from ec504_imageencoder_tpu.ops.quant import quantize as ref_quantize
+from ec504_imageencoder_tpu.ops.vlc_device import block_streams_compat as ref_block_streams_compat
+from ec504_imageencoder_tpu.ops.zigzag import zigzag_scan as ref_zigzag_scan
+from ec504_imageencoder_tpu.utils.tables import ZIGZAG_GATHER, scale_quantization_matrix
+from ec504_imageencoder_tpu_torch.models.mpeg1 import f32_levels
+from ec504_imageencoder_tpu_torch.ops import cuda_vlc, cuda_vlc_compat, cuda_vlc_levels
 from ec504_imageencoder_tpu_torch.ops.cuda_vlc import Luts
 from ec504_imageencoder_tpu_torch.ops.dct import aan_dct
-from ec504_imageencoder_tpu_torch.ops.quant import quantize_intra
+from ec504_imageencoder_tpu_torch.ops.quant import quantize, quantize_intra
+from ec504_imageencoder_tpu_torch.ops.zigzag import zigzag_scan
 
 
 def _px64_blocks(y, cb, cr):
@@ -94,3 +113,189 @@ def test_wrapper_checks_inputs():
         cuda_vlc.vlc_fused4(y.int(), c, c, qw, luts)             # dtype
     with pytest.raises(TypeError):
         cuda_vlc.vlc_fused4(y, c, c, qw.long(), luts)
+
+
+# ---- B3: levels -> fused slots (the high-quality path's emission) --------
+
+@pytest.mark.parametrize("quality", [70, 85, 100])
+@pytest.mark.parametrize("noise", [True, False], ids=["noise", "smooth"])
+def test_levels_twin_matches_pallas_kernel(quality, noise):
+    """`vlc_levels4` on CPU tensors against `vlc_slots_tpu(interpret=True)`
+    + `fuse_slots_streamwise`, both fed one levels tensor computed once
+    (the port's f32 DCT path).  6 slice rows of 18 blocks."""
+    rng = np.random.default_rng(quality * 10 + noise)
+    y, cb, cr = (torch.from_numpy(p) for p in _planes(rng, 3, 32, 48, noise))
+    intra_q, qscale = quality_to_quant(quality)
+    qw = torch.from_numpy((intra_q * qscale).astype(np.int32))
+    luts = Luts.default("cpu")
+    levels, preds = f32_levels(y, cb, cr, qw, luts.zigzag)
+    if noise and quality == 100:
+        assert int(levels[..., 1:].abs().max()) >= 128  # 28-bit escapes
+
+    codes, lens = vlc_slots_tpu(levels.numpy().transpose(0, 2, 1), preds.numpy(), interpret=True)
+    want = [np.asarray(a).view(np.int32) for a in fuse_slots_streamwise(codes, lens)]
+    got = cuda_vlc_levels.vlc_levels4(levels, preds, luts)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32
+        assert np.array_equal(g.numpy(), w)
+
+
+def test_levels_wrapper_checks_inputs():
+    lv = torch.zeros((2, 12, 64), dtype=torch.int32)
+    pr = torch.zeros((2, 12), dtype=torch.int32)
+    luts = Luts.default("cpu")
+    with pytest.raises(ValueError):
+        cuda_vlc_levels.vlc_levels4(lv[:, :10], pr[:, :10], luts)   # not whole MBs
+    with pytest.raises(ValueError):
+        cuda_vlc_levels.vlc_levels4(lv, pr[:, :6], luts)            # preds shape
+    with pytest.raises(TypeError):
+        cuda_vlc_levels.vlc_levels4(lv.long(), pr, luts)
+    with pytest.raises(TypeError):
+        cuda_vlc_levels.vlc_levels4(lv, pr, Luts(*(t.long() for t in luts)))
+
+
+# ---- B4a/B4b: compat frames -> slots -------------------------------------
+
+def _compat_planes(rng, h, w):
+    """Two frames of full-resolution planes: noise, and smooth ramps whose
+    first luma block is `_ESCAPE_BLOCK`."""
+    noise = [rng.integers(0, 256, (h, w), dtype=np.uint8) for _ in range(3)]
+    yy, xx = np.mgrid[:h, :w]
+    smooth = [((yy * (2 * k + 3) + (xx // 8) * 11 * k) % 256).astype(np.uint8)
+              for k in (1, 2, 3)]
+    smooth[0][:8, :8] = _ESCAPE_BLOCK
+    return tuple(np.stack([a, b]) for a, b in zip(noise, smooth))
+
+
+# its AAN levels at q=100 (steps of 1) start 239, 0, -144: the compat
+# emission keeps slot 2 (a zero before it) as a 28-bit escape
+_ESCAPE_BLOCK = np.array([
+    [3, 1, 0, 1, 2, 2, 3, 1], [11, 10, 7, 9, 10, 11, 10, 9],
+    [18, 18, 15, 18, 19, 18, 19, 16], [27, 25, 23, 25, 26, 27, 27, 25],
+    [34, 34, 31, 33, 34, 35, 35, 33], [42, 42, 40, 41, 43, 42, 43, 41],
+    [51, 50, 47, 49, 51, 50, 50, 49], [58, 58, 55, 58, 59, 58, 58, 56],
+], np.uint8)
+
+
+def _emits_typo_pair(y, cb, cr, scaled_q) -> bool:
+    """Whether a block emits (run 16, |level| 2), where the reference's
+    Pallas kernels read the ISO row and the C encoder its 15-bit typo."""
+    blocks = cuda_vlc_compat.compat_blockize(*(torch.from_numpy(p) for p in (y, cb, cr)))
+    zz = zigzag_scan(quantize(aan_dct(blocks), torch.from_numpy(scaled_q))).numpy()
+    for blk in zz.reshape(-1, 64):
+        nz = np.flatnonzero(blk[1:]) + 1
+        prev = np.concatenate([[0 if blk[0] else -1], nz[:-1]])
+        zb = nz - prev - 1
+        stop = np.flatnonzero(zb == 0)
+        keep = slice(None, stop[0] if stop.size else None)
+        if ((zb[keep] == 17) & (np.abs(blk[nz][keep]) == 2)).any():
+            return True
+    return False
+
+
+COMPAT_CASES = [
+    pytest.param(150, 101, 12, id="150x101-q12"),
+    pytest.param(150, 101, 1, id="150x101-q1"),
+    pytest.param(150, 101, 50, id="150x101-q50"),
+    pytest.param(150, 101, 100, id="150x101-q100"),
+]
+
+
+@pytest.mark.parametrize("height,width,quality", COMPAT_CASES)
+def test_compat_twins_match_pallas_kernels(height, width, quality):
+    """B4a's twin against `vlc_compat_slots_from_blocks_tpu(interpret=True)`
+    (lengths exact, codes exact below their length) and B4b's against
+    `vlc_compat_fused_slots_from_blocks_tpu` + `fused_stack_to_stream`
+    (exact), both fed the reference's compat blockize of the same planes.
+    The inputs avoid (run 16, |level| 2), where the Pallas kernels leave
+    the reference (see test_compat_typo_pair_follows_the_reference)."""
+    rng = np.random.default_rng(quality + width)
+    y, cb, cr = _compat_planes(rng, height, width)
+    scaled_q = scale_quantization_matrix(quality).astype(np.int32)
+    assert not _emits_typo_pair(y, cb, cr, scaled_q)
+    blocks = compat_blockize_px64(y, cb, cr, np)
+    planes = [torch.from_numpy(p) for p in (y, cb, cr)]
+    luts = Luts.compat("cpu")
+
+    codes, lens = vlc_compat_slots_from_blocks_tpu(blocks, scaled_q, interpret=True)
+    got_c, got_l = cuda_vlc_compat.vlc_compat_slots(*planes, torch.from_numpy(scaled_q), luts)
+    want_l = np.asarray(lens)
+    assert np.array_equal(got_l.numpy(), want_l)
+    mask = ((1 << np.clip(want_l, 0, 31).astype(np.uint64)) - 1).astype(np.uint32)
+    assert np.array_equal(got_c.numpy().view(np.uint32), np.asarray(codes) & mask)
+
+    vstack, flens = vlc_compat_fused_slots_from_blocks_tpu(blocks, scaled_q, interpret=True)
+    want = [np.asarray(a).view(np.int32) for a in fused_stack_to_stream(vstack, flens)]
+    got = cuda_vlc_compat.vlc_compat_fused4(*planes, torch.from_numpy(scaled_q), luts)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32
+        assert np.array_equal(g.numpy(), w)
+    if quality == 100:
+        assert int(got_l[:, 1:].max()) == 28  # a 28-bit escape (unclamped levels)
+
+
+def _reference_compat_slots(y, cb, cr, scaled_q):
+    """The reference's numpy compat chain (golden-exact), folded to the
+    kernels' 64 slots: (codes, lens) of shape (B * 6, 64, 54)."""
+    px = compat_blockize_px64(y, cb, cr, np)
+    r, _, nb = px.shape
+    f = aan_dct_nb(px.reshape(r, 8, 8, nb).transpose(0, 2, 1, 3), np)
+    lvl = ref_quantize(f.transpose(0, 3, 1, 2), scaled_q, np)
+    zz = ref_zigzag_scan(lvl, np)                                # (R, NB, 64)
+    comp = np.arange(nb) % 6
+    c, ln = ref_block_streams_compat(zz, np.broadcast_to(comp < 4, (r, nb)), np)
+    c, ln = c[..., :64].astype(np.uint32), ln[..., :64].copy()
+    c[..., 63] = (c[..., 63] << 2) | 2
+    ln[..., 63] += 2
+    first = comp == 0
+    c[:, first, 0] |= np.uint32(3) << ln[:, first, 0].astype(np.uint32)
+    ln[:, first, 0] += 2
+    return c.transpose(0, 2, 1), ln.transpose(0, 2, 1)
+
+
+def test_compat_typo_pair_follows_the_reference():
+    """At (run 16, |level| 2) the reference C encoder writes a 15-bit typo
+    of the 16-bit ISO code; the reference's numpy compat path (which the
+    golden stream locks) does too, and so does the port.  The Pallas
+    kernels read the ISO row there and write 16 bits.  The first luma
+    block is built from an inverse DCT to hold a DC, 17 zeros and a level
+    of 2 at q=12 (steps of 67 and more drown the rounding noise)."""
+    quality = 12
+    scaled_q = scale_quantization_matrix(quality).astype(np.int32)
+    k = 18
+    v, u = divmod(int(ZIGZAG_GATHER[k]), 8)
+    coef = np.zeros((8, 8))
+    coef[v, u] = 2.5 * scaled_q[v, u]
+    d = dct_matrix_f32().astype(np.float64)
+    blk = np.clip(np.rint(128 + d.T @ coef @ d), 0, 255).astype(np.uint8)
+    y = np.full((2, 150, 101), 128, np.uint8)  # the shape of COMPAT_CASES
+    y[0, :8, :8] = blk
+    cb = np.full_like(y, 128)
+    cr = np.full_like(y, 128)
+    assert _emits_typo_pair(y, cb, cr, scaled_q)
+
+    want_c, want_l = _reference_compat_slots(y, cb, cr, scaled_q)
+    planes = [torch.from_numpy(p) for p in (y, cb, cr)]
+    got_c, got_l = cuda_vlc_compat.vlc_compat_slots(
+        *planes, torch.from_numpy(scaled_q), Luts.compat("cpu"))
+    assert np.array_equal(got_l.numpy(), want_l)
+    assert np.array_equal(got_c.numpy().view(np.uint32), want_c)
+    assert got_l[0, k, 0] == 15
+    _, lens = vlc_compat_slots_from_blocks_tpu(
+        compat_blockize_px64(y, cb, cr, np), scaled_q, interpret=True)
+    diff = got_l.numpy() != np.asarray(lens)
+    assert diff.sum() == 1 and np.asarray(lens)[0, k, 0] == 16
+
+
+def test_compat_wrappers_check_inputs():
+    y = torch.zeros((1, 144, 96), dtype=torch.uint8)
+    q = torch.ones((8, 8), dtype=torch.int32)
+    luts = Luts.compat("cpu")
+    with pytest.raises(ValueError):
+        cuda_vlc_compat.vlc_compat_fused4(y[:, :140], y[:, :140], y[:, :140], q, luts)
+    with pytest.raises(ValueError):
+        cuda_vlc_compat.vlc_compat_slots(y, y[:, :, :95], y, q, luts)
+    with pytest.raises(TypeError):
+        cuda_vlc_compat.vlc_compat_fused4(y.int(), y, y, q, luts)
+    with pytest.raises(TypeError):
+        cuda_vlc_compat.vlc_compat_slots(y, y, y, q.long(), luts)
