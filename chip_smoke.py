@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's three encode paths once on one GPU.
+"""Drive the PyTorch/CUDA port's encode paths once on one GPU.
 
 Run from the repository root on a machine with one CUDA card, nvcc and
 PyTorch built for CUDA:
@@ -37,10 +37,28 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    B3 and B2 launch counts went up and B1's did not;
 9. compat mode: encode_compat(device="cuda") equals the golden stream and
    .bit dump md5s on the 30 golden frames, also with debug_checks (raw
-   slots through B4a), and equals the numpy reference encode_compat on
-   the 480 frames; the B4b and B4a launch counts went up;
+   slots through B4a, then B2's checked form), and equals the numpy
+   reference encode_compat on the 480 frames; the B4b and B4a launch
+   counts went up;
 10. times: B3, B4b and B4a against their twins, q=85
-   encode()/encode_from_planes() and compat encode_compat() in frames/s.
+   encode()/encode_from_planes() and compat encode_compat() in frames/s;
+11. kernel B6a (vlc_raw, the sanitizer's raw slots) against its twin on
+   the 16 x 1080p planes at q=50 and on the 1000 x 1400 noise: exact;
+12. kernel B5 (lut_lookup) against its twin on the AC rank indices of the
+   16 x 1080p q=85 levels and on random indices in and around both
+   packed tables: exact;
+13. B2's checked form (pack_fused4 checks=True) against the unchecked
+   kernel and its twin: equal bytes and 0 violations on healthy slots,
+   the twin's exact counts for fused lengths of 200 and 129, counts > 0
+   on injected overlapping bits;
+14. the sanitizer: TorchMPEG1IntraEncoder(debug_checks=True) encode() and
+   encode_from_planes() on the 16 x 1080p frames at q=50 (through B6a)
+   and q=85 (through B5), byte-equal to the numpy reference bytes of
+   phases 4 and 8; B6a / B5 and the checked B2 launch, B1, B3 and the
+   unchecked B2 do not; a slot violation injected on the card raises
+   RuntimeError;
+15. times: B6a, B5 and the checked B2 against their twins, and the
+   debug_checks encode()/encode_from_planes() in frames/s.
 
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.
@@ -162,15 +180,19 @@ def main() -> int:
               "needs one CUDA card", file=sys.stderr)
         return 2
 
+    from ec504_imageencoder_tpu_torch.models import mpeg1
     from ec504_imageencoder_tpu_torch.models.encoder import encode_compat
     from ec504_imageencoder_tpu_torch.models.mpeg1 import TorchMPEG1IntraEncoder, f32_levels
     from ec504_imageencoder_tpu_torch.ops import (
         _build,
+        cuda_lut,
         cuda_pack,
         cuda_vlc,
         cuda_vlc_compat,
         cuda_vlc_levels,
+        cuda_vlc_raw,
     )
+    from ec504_imageencoder_tpu_torch.ops.vlc_device import zero_runs
     from ec504_imageencoder_tpu_torch.ops.color import rgb_to_ycbcr, subsample_420
     from ec504_imageencoder_tpu_torch.ops.cuda_vlc import Luts
     from ec504_imageencoder_tpu_torch.shared import (
@@ -186,12 +208,17 @@ def main() -> int:
     def reset_launches():
         cuda_vlc.launches = cuda_pack.launches = cuda_vlc_levels.launches = 0
         cuda_vlc_compat.launches_slots = cuda_vlc_compat.launches_fused4 = 0
+        cuda_vlc_raw.launches = cuda_lut.launches = cuda_pack.launches_checked = 0
 
     def read_launches():
         return {"vlc_fused4": cuda_vlc.launches, "pack_fused4": cuda_pack.launches,
                 "vlc_levels4": cuda_vlc_levels.launches,
                 "vlc_compat_slots": cuda_vlc_compat.launches_slots,
-                "vlc_compat_fused4": cuda_vlc_compat.launches_fused4}
+                "vlc_compat_fused4": cuda_vlc_compat.launches_fused4,
+                "vlc_raw": cuda_vlc_raw.launches, "lut_lookup": cuda_lut.launches,
+                "pack_fused4_checked": cuda_pack.launches_checked}
+
+    sanitizer_kernels = ("vlc_raw", "lut_lookup", "pack_fused4_checked")
 
     dev = torch.device("cuda", 0)
     gpu = _gpu_line()
@@ -202,8 +229,9 @@ def main() -> int:
 
     # ---- 1. build -------------------------------------------------------
     t0 = time.perf_counter()
-    _build.build(["vlc_fused4", "pack_fused4", "vlc_levels4", "vlc_compat"])
-    for mod in (cuda_vlc, cuda_pack, cuda_vlc_levels, cuda_vlc_compat):
+    _build.build(["vlc_fused4", "pack_fused4", "vlc_levels4", "vlc_compat", "vlc_raw",
+                  "lut_lookup"])
+    for mod in (cuda_vlc, cuda_pack, cuda_vlc_levels, cuda_vlc_compat, cuda_vlc_raw, cuda_lut):
         mod.load_kernel()
     cold_build_s = time.perf_counter() - t0
     for name, (secs, log) in sorted(_build.build_info.items()):
@@ -282,7 +310,7 @@ def main() -> int:
     launches = read_launches()
     _check_launches(f"q={QUALITY} path (encode + encode_from_planes + regrow encode, "
                     f"{main_s:.2f} s)", launches, ("vlc_fused4", "pack_fused4"),
-                    ("vlc_levels4", "vlc_compat_slots", "vlc_compat_fused4"))
+                    ("vlc_levels4", "vlc_compat_slots", "vlc_compat_fused4", *sanitizer_kernels))
     if regrow.max_slice_bytes <= 2560:
         raise AssertionError("the forced-regrow run did not regrow")
     print(f"regrow: 2560 B -> {regrow.max_slice_bytes} B per slice")
@@ -369,7 +397,7 @@ def main() -> int:
     hq_s = time.perf_counter() - t0
     hq_launches = read_launches()
     _check_launches(f"q={HQ_QUALITY} path (encode + encode_from_planes, {hq_s:.2f} s)",
-                    hq_launches, ("vlc_levels4", "pack_fused4"), ("vlc_fused4",))
+                    hq_launches, ("vlc_levels4", "pack_fused4"), ("vlc_fused4", *sanitizer_kernels))
 
     t0 = time.perf_counter()
     hq_ref = MPEG1IntraEncoder(quality=HQ_QUALITY, backend="numpy")
@@ -428,12 +456,13 @@ def main() -> int:
     compat_launches = read_launches()
     _check_launches(f"compat path (30 + {len(compat_frames)} frames, {compat_s:.2f} s)",
                     compat_launches, ("vlc_compat_fused4", "pack_fused4"),
-                    ("vlc_compat_slots", "vlc_fused4", "vlc_levels4"))
+                    ("vlc_compat_slots", "vlc_fused4", "vlc_levels4", *sanitizer_kernels))
     reset_launches()
     c_debug, _ = encode_compat(gold_frames, COMPAT_QUALITY, device=dev, debug_checks=True)
     debug_launches = read_launches()
     _check_launches("compat path with debug_checks (30 frames)", debug_launches,
-                    ("vlc_compat_slots", "pack_fused4"), ("vlc_compat_fused4",))
+                    ("vlc_compat_slots", "pack_fused4_checked"),
+                    ("vlc_compat_fused4", "pack_fused4"))
 
     md5_ok = all(hashlib.md5(d).hexdigest() == gold_md5[f"image_{i + 1}.bit"]
                  for i, d in enumerate(c_dumps))
@@ -476,6 +505,144 @@ def main() -> int:
         fps, ms = _frames_per_s(torch, fn, n, 3)
         print(f"{label}: {fps:.2f} frames/s ({ms:.2f} ms per call) {tag}")
 
+    # ---- 11. B6a against its twin ----------------------------------------
+    b6a_err = max(
+        _check_twin(torch, f"B6a vlc_raw vs twin, {name}", cuda_vlc_raw.vlc_raw,
+                    cuda_vlc_raw.vlc_raw_plain, (*planes, core.qw, luts))
+        for name, planes in ((f"16x1080p q={QUALITY}", planes_hd), (f"2x{oh}x{ow} noise", planes_odd))
+    )
+
+    # ---- 12. B5 against its twin -----------------------------------------
+    hq_levels = hq_in[0]
+    ranks, _ = cuda_lut.ac_rank(zero_runs(hq_levels, force_slot0=True), hq_levels.abs())
+    ac_tab, dc_tab = cuda_lut.AC_PACKED.to(dev), cuda_lut.DC_PACKED.to(dev)
+    rand_idx = torch.from_numpy(rng.integers(-64, 192, 10_000_000).astype(np.int32)).to(dev)
+
+    def lookup(idx, table):
+        return (cuda_lut.lut_lookup(idx, table),)
+
+    def lookup_plain(idx, table):
+        return (cuda_lut.lut_lookup_plain(idx, table),)
+
+    b5_err = max(
+        _check_twin(torch, f"B5 lut_lookup vs twin, {name}", lookup, lookup_plain, args)
+        for name, args in ((f"AC ranks of the 16x1080p q={HQ_QUALITY} levels", (ranks, ac_tab)),
+                           ("10M random indices, AC table", (rand_idx, ac_tab)),
+                           ("10M random indices, DC table", (rand_idx, dc_tab)))
+    )
+
+    # ---- 13. B2's checked form -------------------------------------------
+    mw_hd = msb_hd // 4
+    b2c_err = 0
+    for name, sl, mw in (("16x1080p", slots["16x1080p"], mw_hd),
+                         ("noise, 2560 B buffer", slots[f"2x{oh}x{ow} noise"], 640),
+                         ("noise, 342528 B buffer", slots[f"2x{oh}x{ow} noise"], 342528 // 4)):
+        got = cuda_pack.pack_fused4(*sl, mw, bit_offset=38, checks=True)
+        unchecked = cuda_pack.pack_fused4(*sl, mw, bit_offset=38)
+        want = cuda_pack.pack_fused4_plain(*sl, mw, bit_offset=38, checks=True)
+        torch.cuda.synchronize()
+        err = max(_max_abs_err(torch, got, want), _max_abs_err(torch, got[:2], unchecked))
+        b2c_err = max(b2c_err, err)
+        print(f"B2 checked vs twin and unchecked, {name}: violations {int(got[2].sum())}, "
+              f"max_abs_err {err}")
+        if err != 0 or got[2].any():
+            raise AssertionError(f"checked B2 on healthy slots, {name}")
+    n_sl = sl_hd[4].shape[0]
+    bad = [t.clone() for t in sl_hd]
+    bad[4][1, 100] = 200
+    bad[4][n_sl - 1, 5] = 129
+    got = cuda_pack.pack_fused4(*bad, mw_hd, bit_offset=38, checks=True)
+    want = cuda_pack.pack_fused4_plain(*bad, mw_hd, bit_offset=38, checks=True)
+    torch.cuda.synchronize()
+    err = _max_abs_err(torch, got, want)
+    b2c_err = max(b2c_err, err)
+    hit = got[2].nonzero().flatten().tolist()
+    print(f"B2 checked, fused lengths 200 and 129: violations in slices {hit}, max_abs_err {err}")
+    if err != 0 or hit != [1, n_sl - 1] or int(got[2].sum()) != 2:
+        raise AssertionError("checked B2 miscounts bad fused lengths")
+    row = n_sl // 2
+    over = [t.clone() for t in sl_hd]
+    for t in over[:3]:
+        t[row, :20] = 0
+    over[3][row, :20] = -1  # 16 one bits above each 16-bit length
+    over[4][row, :20] = 16
+    got = cuda_pack.pack_fused4(*over, mw_hd, bit_offset=38, checks=True)
+    want = cuda_pack.pack_fused4_plain(*over, mw_hd, bit_offset=38, checks=True)
+    hit, want_hit = got[2].nonzero().flatten().tolist(), want[2].nonzero().flatten().tolist()
+    print(f"B2 checked, overlapping bits in slice {row}: kernel counts {int(got[2][row])} in "
+          f"slices {hit}, twin {int(want[2][row])} in {want_hit}")
+    if hit != [row] or want_hit != [row]:
+        raise AssertionError("checked B2 misses overlapping bits")
+    del bad, over, got, want, unchecked
+
+    # ---- 14. the sanitizer: debug_checks=True ----------------------------
+    debug_counts = {}
+    for q, must, ref_pair in ((QUALITY, "vlc_raw", (ref_rgb, ref_planes)),
+                              (HQ_QUALITY, "lut_lookup", (ref_hq_rgb, ref_hq_planes))):
+        reset_launches()
+        t0 = time.perf_counter()
+        dbg = TorchMPEG1IntraEncoder(quality=q, debug_checks=True, device=dev)
+        d_rgb = dbg.encode(frames)
+        d_planes = dbg.encode_from_planes(jy, jcb, jcr)
+        debug_s = time.perf_counter() - t0
+        debug_counts[q] = read_launches()
+        other = "lut_lookup" if must == "vlc_raw" else "vlc_raw"
+        _check_launches(f"q={q} debug_checks path ({dbg.dct_impl}; encode + encode_from_planes, "
+                        f"{debug_s:.2f} s)", debug_counts[q], (must, "pack_fused4_checked"),
+                        ("vlc_fused4", "vlc_levels4", "pack_fused4", other))
+        for name, got, want in (("encode", d_rgb, ref_pair[0]),
+                                ("encode_from_planes", d_planes, ref_pair[1])):
+            print(f"q={q} debug_checks {name}: {len(got)} B, numpy reference {len(want)} B, "
+                  f"equal {got == want}")
+            if got != want:
+                raise AssertionError(f"q={q} debug_checks {name} differs from the numpy reference")
+    debug_counts["sum"] = {k: debug_counts[QUALITY][k] + debug_counts[HQ_QUALITY][k]
+                           for k in debug_counts[QUALITY]}
+
+    real_raw = mpeg1.vlc_raw
+
+    def corrupt(*args):
+        codes, lens, viol = real_raw(*args)
+        lens[0, 5, 0] = 31  # a slot length over 30
+        return codes, lens, viol
+
+    mpeg1.vlc_raw = corrupt
+    raised = None
+    try:
+        TorchMPEG1IntraEncoder(quality=QUALITY, debug_checks=True, device=dev).encode(frames[:2])
+    except RuntimeError as e:
+        if "invariant violations" not in str(e):
+            raise
+        raised = str(e)
+    finally:
+        mpeg1.vlc_raw = real_raw
+    print(f"injected slot violation on the card: RuntimeError {raised!r}")
+    if raised is None:
+        raise AssertionError("an injected slot violation did not raise")
+
+    # ---- 15. steady-state times, sanitizer -------------------------------
+    torch.cuda.empty_cache()
+    for name, kernel, twin, args, where in (
+        ("vlc_raw", cuda_vlc_raw.vlc_raw, cuda_vlc_raw.vlc_raw_plain,
+         (*planes_hd, core.qw, luts), f"16x1080p q={QUALITY}"),
+        ("lut_lookup", cuda_lut.lut_lookup, cuda_lut.lut_lookup_plain,
+         (ranks, ac_tab), f"{ranks.numel()} AC ranks, 16x1080p q={HQ_QUALITY}"),
+        ("pack_fused4_checked", lambda *a: cuda_pack.pack_fused4(*a, checks=True),
+         lambda *a: cuda_pack.pack_fused4_plain(*a, checks=True), (*sl_hd, mw_hd),
+         f"16x1080p q={QUALITY}"),
+    ):
+        times[name] = (_event_ms(torch, lambda: kernel(*args), 20),
+                       _event_ms(torch, lambda: twin(*args), 3))
+        print(f"{name} at {where}: kernel {times[name][0]:.4f} ms, "
+              f"plain twin {times[name][1]:.4f} ms {tag}")
+    for q in (QUALITY, HQ_QUALITY):
+        dbg = TorchMPEG1IntraEncoder(quality=q, debug_checks=True, device=dev)
+        for label, fn in (("encode", lambda: dbg.encode(frames)),
+                          ("encode_from_planes", lambda: dbg.encode_from_planes(jy, jcb, jcr))):
+            fps, ms = _frames_per_s(torch, fn, BATCH, 3)
+            print(f"debug_checks {label} 16x1080p q={q}: {fps:.2f} frames/s "
+                  f"({ms:.2f} ms per batch) {tag}")
+
     src = "ec504_imageencoder_tpu_torch/csrc/"
     rows = [
         ("vlc_fused4", "vlc_fused4.cu", "ec504_imageencoder_tpu/ops/pallas_vlc.py:556",
@@ -488,6 +655,12 @@ def main() -> int:
          debug_launches, b4a_err),
         ("vlc_compat_fused4", "vlc_compat.cu", "ec504_imageencoder_tpu/ops/pallas_vlc.py:859",
          compat_launches, b4b_err),
+        ("vlc_raw", "vlc_raw.cu", "ec504_imageencoder_tpu/ops/pallas_vlc.py:468",
+         debug_counts[QUALITY], b6a_err),
+        ("lut_lookup", "lut_lookup.cu", "ec504_imageencoder_tpu/ops/mxu_lut.py:249",
+         debug_counts[HQ_QUALITY], b5_err),
+        ("pack_fused4_checked", "pack_fused4.cu", "ec504_imageencoder_tpu/ops/pallas_pack.py:763",
+         debug_counts["sum"], b2c_err),
     ]
     kernels = [
         {"name": name, "route": "cuda", "source": src + cu, "replaces": replaces,

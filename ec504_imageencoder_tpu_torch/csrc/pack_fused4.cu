@@ -24,6 +24,19 @@
 // (e.g. 342,528 B at width 4095) is ORed in place in the zeroed output row
 // in global memory instead.  A final coalesced pass byte-swaps the words
 // into stream byte order.
+//
+// The checked form (kChecks, entry point with a non-null `viol`) replaces
+// the debug outputs of `_fused4_kernel` (`pack_words_fused4_core(...,
+// debug=True)`): per slice it counts fused lengths outside [0, 128] and
+// placements whose bits overlap bits already placed.  The TPU finds an
+// overlap as a byte-plane sum above 255; here atomicOr returns the old
+// word, and old & w != 0 is an overlap (which of two overlapping slots
+// counts depends on the order of the atomics, so the overlap term is
+// exact only as zero / nonzero).  It also skips a slot whose value would
+// start above its 160-bit window (length > 160 - bit offset in its word)
+// and keeps words below the buffer, as the plain twin does, so corrupted
+// lengths cannot write out of bounds.  The unchecked form compiles to the
+// code it had without the flag.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,16 +69,17 @@ __device__ __forceinline__ uint32_t window_word(const uint32_t u[5], int j, int 
   return r ? (hi << r) | (lo >> (32 - r)) : hi;
 }
 
-template <bool kShared>
+template <bool kShared, bool kChecks>
 __global__ void __launch_bounds__(kThreads)
 pack_fused4_kernel(const int32_t* __restrict__ v0, const int32_t* __restrict__ v1,
                    const int32_t* __restrict__ v2, const int32_t* __restrict__ v3,
                    const int32_t* __restrict__ flens, int kf, int max_words,
                    int bit_offset, uint32_t* __restrict__ seg_words,
-                   int32_t* __restrict__ nbits) {
+                   int32_t* __restrict__ nbits, int32_t* __restrict__ viol) {
   extern __shared__ uint32_t s_buf[];
   __shared__ int s_warp[kWarps];
   __shared__ int s_carry;
+  __shared__ int s_viol;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int row = blockIdx.x;
@@ -74,6 +88,8 @@ pack_fused4_kernel(const int32_t* __restrict__ v0, const int32_t* __restrict__ v
 
   for (int i = tid; i < max_words; i += kThreads) buf[i] = 0u;
   if (tid == 0) s_carry = bit_offset;
+  if (kChecks && tid == 0) s_viol = 0;
+  int hits = 0;  // this thread's violations (kChecks)
   __syncthreads();
 
   const size_t base = (size_t)row * kf;
@@ -91,33 +107,64 @@ pack_fused4_kernel(const int32_t* __restrict__ v0, const int32_t* __restrict__ v
     __syncthreads();
     const int off = s_carry + (warp ? s_warp[warp - 1] : 0) + incl - len;
     const int total = s_warp[kWarps - 1];
-    if (len > 0) {
+    if (kChecks) hits += len < 0 || len > 128;
+    const int sig = 160 - (off & 31) - len;
+    if (len > 0 && (!kChecks || sig >= 0)) {
       const uint32_t u[5] = {0u, (uint32_t)v0[base + i], (uint32_t)v1[base + i],
                              (uint32_t)v2[base + i], (uint32_t)v3[base + i]};
       const int word = off >> 5;
-      const int sig = 160 - (off & 31) - len;
       const int q = sig >> 5, r = sig & 31;
 #pragma unroll
       for (int j = 0; j < 5; ++j) {
         const uint32_t w = window_word(u, j, q, r);
-        if (w && word + j < max_words) atomicOr(&buf[word + j], w);
+        if constexpr (kChecks) {
+          if (w && word + j >= 0 && word + j < max_words)
+            hits += (atomicOr(&buf[word + j], w) & w) != 0u;
+        } else {
+          if (w && word + j < max_words) atomicOr(&buf[word + j], w);
+        }
       }
     }
     __syncthreads();  // everyone has read s_carry and s_warp
     if (tid == 0) s_carry += total;
   }
+  if constexpr (kChecks) {
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) hits += __shfl_down_sync(0xffffffffu, hits, d);
+    if (lane == 0 && hits) atomicAdd(&s_viol, hits);
+  }
   __syncthreads();
   if (tid == 0) nbits[row] = s_carry;
+  if (kChecks && tid == 0) viol[row] = s_viol;
   // stream byte order: word w's most significant byte first
   for (int i = tid; i < max_words; i += kThreads) out[i] = __byte_perm(buf[i], 0u, 0x0123);
 }
 
+template <bool kShared, bool kChecks>
+cudaError_t launch(const void* v0, const void* v1, const void* v2, const void* v3,
+                   const void* flens, int n, int kf, int max_words, int bit_offset, void* seg,
+                   void* nbits, void* viol, size_t bytes, cudaStream_t s) {
+  if constexpr (kShared) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        pack_fused4_kernel<kShared, kChecks>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
+    if (err != cudaSuccess) return err;
+  }
+  pack_fused4_kernel<kShared, kChecks><<<n, kThreads, kShared ? bytes : 0, s>>>(
+      (const int32_t*)v0, (const int32_t*)v1, (const int32_t*)v2, (const int32_t*)v3,
+      (const int32_t*)flens, kf, max_words, bit_offset, (uint32_t*)seg, (int32_t*)nbits,
+      (int32_t*)viol);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
+// viol == nullptr: the production kernel; otherwise the checked form,
+// which also writes the (n,) int32 violation counts to viol.
 extern "C" int pack_fused4_launch(const void* v0, const void* v1, const void* v2,
                                   const void* v3, const void* flens, int n, int kf,
                                   int max_words, int bit_offset, void* seg,
-                                  void* nbits, int device, void* stream) {
+                                  void* nbits, void* viol, int device, void* stream) {
   if (n < 0 || kf < 0 || max_words <= 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -126,21 +173,21 @@ extern "C" int pack_fused4_launch(const void* v0, const void* v1, const void* v2
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return (int)err;
   const size_t bytes = (size_t)max_words * 4;
-  const size_t static_bytes = (kWarps + 1) * sizeof(int);
+  const size_t static_bytes = (kWarps + 2) * sizeof(int);
+  const bool shared = bytes + static_bytes <= (size_t)optin;
   cudaStream_t s = (cudaStream_t)stream;
-  if (bytes + static_bytes <= (size_t)optin) {
-    err = cudaFuncSetAttribute(pack_fused4_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    pack_fused4_kernel<true><<<n, kThreads, bytes, s>>>(
-        (const int32_t*)v0, (const int32_t*)v1, (const int32_t*)v2, (const int32_t*)v3,
-        (const int32_t*)flens, kf, max_words, bit_offset, (uint32_t*)seg, (int32_t*)nbits);
+  if (viol == nullptr) {
+    err = shared ? launch<true, false>(v0, v1, v2, v3, flens, n, kf, max_words, bit_offset,
+                                       seg, nbits, viol, bytes, s)
+                 : launch<false, false>(v0, v1, v2, v3, flens, n, kf, max_words, bit_offset,
+                                        seg, nbits, viol, bytes, s);
   } else {
-    pack_fused4_kernel<false><<<n, kThreads, 0, s>>>(
-        (const int32_t*)v0, (const int32_t*)v1, (const int32_t*)v2, (const int32_t*)v3,
-        (const int32_t*)flens, kf, max_words, bit_offset, (uint32_t*)seg, (int32_t*)nbits);
+    err = shared ? launch<true, true>(v0, v1, v2, v3, flens, n, kf, max_words, bit_offset,
+                                      seg, nbits, viol, bytes, s)
+                 : launch<false, true>(v0, v1, v2, v3, flens, n, kf, max_words, bit_offset,
+                                       seg, nbits, viol, bytes, s);
   }
-  return (int)cudaGetLastError();
+  return (int)err;
 }
 
 extern "C" const char* pack_fused4_strerror(int err) {

@@ -1,7 +1,8 @@
 // Device code shared by the VLC kernels (vlc_fused4.cu, vlc_levels4.cu,
-// vlc_compat.cu): the reference's integer AAN forward DCT, the VLC table
-// layout in shared memory, the correct-mode DC and AC slot emission, and
-// the exact 4:1 slot fusion with its stream-order store.
+// vlc_compat.cu, vlc_raw.cu): the reference's integer AAN forward DCT, the
+// VLC table layout in shared memory, the correct-mode DC and AC slot
+// emission, the exact 4:1 slot fusion with its stream-order store, and the
+// unfused (raw) slot store.
 //
 // Every function mirrors a function of the PyTorch twins (ops/dct.py,
 // ops/vlc_device.py, ops/bitpack.py::fuse4), which mirror the reference
@@ -203,6 +204,42 @@ __device__ __forceinline__ void emit_block_fused4(const Levels& levels, uint32_t
       }
     }
     store_fused4(c, l, out, obase + j);
+  }
+}
+
+// The 64 slots of one correct-mode block, unfused: slot k's code and
+// length go to codes[k * stride] and lens[k * stride].  `levels`, code0
+// and len0 as for emit_block_fused4.  The block loop stays rolled and the
+// pointers advance, so the 64 stores need no 64 addresses in registers.
+template <class Levels>
+__device__ __forceinline__ void emit_block_raw(const Levels& levels, uint32_t code0, int len0,
+                                               const uint32_t* s_ac, int32_t* codes,
+                                               int32_t* lens, size_t stride) {
+  int run = 0;
+#pragma unroll 1
+  for (int j = 0; j < 16; ++j) {
+    int lv[4];
+    levels(j, lv);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = 4 * j + i;
+      uint32_t c;
+      int l;
+      if (k == 0) {
+        c = code0;
+        l = len0;
+      } else {
+        c = emit_ac(lv[i], run, s_ac, l);
+        if (k == 63) {  // end of block '10'
+          c = (c << 2) | 2u;
+          l += 2;
+        }
+      }
+      *codes = (int32_t)c;
+      *lens = l;
+      codes += stride;
+      lens += stride;
+    }
   }
 }
 

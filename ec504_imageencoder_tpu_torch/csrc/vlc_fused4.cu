@@ -25,13 +25,14 @@
 // because the zigzag scatter indexes them at run time.  Tables (AC run/
 // level LUT, DC size VLCs, zigzag, qscale*W) are copied to shared memory
 // once per block.  Pixel loads and slot stores are not coalesced: a later
-// PR can stage them through shared memory.  The DCT, the DC/AC slot
-// emission and the fusion store are shared with the other VLC kernels
-// (vlc_emit.cuh).
+// PR can stage them through shared memory.  The block geometry, DCT and
+// quantizer are shared with B6a (planes_dct.cuh), the DC/AC slot emission
+// and the fusion store with the other VLC kernels (vlc_emit.cuh).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "planes_dct.cuh"
 #include "vlc_emit.cuh"
 
 namespace {
@@ -40,29 +41,6 @@ using namespace vlc;
 
 constexpr int kThreads = 128;
 constexpr int kMaxNB = 6 * 256;   // width 4096
-
-// The zigzag levels of a thread's block, in its column of s_lv: slot k
-// at col[k * kThreads].
-struct ColumnLevels {
-  const int* col;
-  __device__ __forceinline__ void operator()(int j, int lv[4]) const {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) lv[i] = col[(4 * j + i) * kThreads];
-  }
-};
-
-__device__ __forceinline__ const uint8_t* block_origin(
-    const uint8_t* y, const uint8_t* cb, const uint8_t* cr, int b, int my,
-    int n, int H, int W, int* stride) {
-  const int mb = n / 6, comp = n - 6 * (n / 6);
-  if (comp < 4) {  // luma order in a macroblock: TL, TR, BL, BR
-    *stride = W;
-    return y + ((size_t)b * H + my * 16 + (comp >> 1) * 8) * W + mb * 16 + (comp & 1) * 8;
-  }
-  const int h2 = H / 2, w2 = W / 2;
-  *stride = w2;
-  return (comp == 4 ? cb : cr) + ((size_t)b * h2 + my * 8) * w2 + mb * 8;
-}
 
 __global__ void __launch_bounds__(kThreads)
 vlc_fused4_kernel(const uint8_t* __restrict__ y, const uint8_t* __restrict__ cb,
@@ -98,12 +76,7 @@ vlc_fused4_kernel(const uint8_t* __restrict__ y, const uint8_t* __restrict__ cb,
   for (int n = tid; n < nb; n += kThreads) {
     int stride;
     const uint8_t* p = block_origin(y, cb, cr, b, my, n, H, W, &stride);
-    int sum = 0;
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) sum += p[r * stride + c];
-    s_dc[n] = min(max((((sum + 16) >> 3) + 4) >> 3, 0), 255);
+    s_dc[n] = block_dc(p, stride);
   }
   __syncthreads();
 
@@ -113,29 +86,16 @@ vlc_fused4_kernel(const uint8_t* __restrict__ y, const uint8_t* __restrict__ cb,
     int stride;
     const uint8_t* p = block_origin(y, cb, cr, b, my, n, H, W, &stride);
     int x[8][8];
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) x[r][c] = p[r * stride + c];
-    aan_dct(x);
-
+    block_aan_dct(p, stride, x);
     const int dc = min(max((x[0][0] + 4) >> 3, 0), 255);
-#pragma unroll
-    for (int v = 0; v < 8; ++v)
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const int f = x[v][u];
-        const int q = s_qw[v * 8 + u];
-        const int mag = min((16 * abs(f) + q) / (2 * q), 255);
-        s_lv[s_zpos[v * 8 + u]][tid] = f > 0 ? mag : (f < 0 ? -mag : 0);
-      }
+    quantize_to_column<kThreads>(x, s_qw, s_zpos, &s_lv[0][tid]);
 
     // previous same-component DC in stream order, 128 at slice start
     const int back = comp == 0 ? 3 : (comp >= 4 ? 6 : 1);
     const int pred = n >= back ? s_dc[n - back] : 128;
     int len0;
     const uint32_t code0 = emit_dc(dc, pred, comp, s_dcc, len0);
-    emit_block_fused4(ColumnLevels{&s_lv[0][tid]}, code0, len0, s_ac, out,
+    emit_block_fused4(ColumnLevels<kThreads>{&s_lv[0][tid]}, code0, len0, s_ac, out,
                       (size_t)row * kf + (size_t)n * 16);
   }
 }

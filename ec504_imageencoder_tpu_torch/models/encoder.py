@@ -56,22 +56,24 @@ class CompatCore(nn.Module):
         (seg (B, 6, MAX_SLICE_BYTES_COMPAT) u8, nbits (B, 6) int32).
 
         debug_checks: the raw slots of B4a go through the slot invariant
-        checks and are fused in PyTorch, as the reference's
-        EC504_DEBUG_CHECKS=1 runs its raw-slot compat kernel; a slice with
-        violations reports their count negated in nbits."""
+        checks, are fused in PyTorch and packed by B2's checked form, as
+        the reference's EC504_DEBUG_CHECKS=1 runs its raw-slot compat
+        kernel and its guarded pack; a slice with violations (slot, fused
+        length or overlap) reports their count negated in nbits."""
         bsz = y.shape[0]
+        mw = MAX_SLICE_BYTES_COMPAT // 4
         if debug_checks:
             codes, lens = vlc_compat_slots(y, cb, cr, self.scaled_q, self.luts())
             viol = slot_violations(codes, lens)
             r = codes.shape[0]
             stream = [t.transpose(1, 2).reshape(r, -1) for t in (codes, lens)]
             slots = tuple(to_i32_bits(t) for t in fuse4(*stream))
+            seg, nbits, pviol = pack_fused4(*slots, mw, bit_offset=SLICE_HEADER_BITS, checks=True)
+            viol = viol + pviol
+            nbits = torch.where(viol > 0, -viol, nbits)
         else:
             slots = vlc_compat_fused4(y, cb, cr, self.scaled_q, self.luts())
-        seg, nbits = pack_fused4(*slots, MAX_SLICE_BYTES_COMPAT // 4,
-                                 bit_offset=SLICE_HEADER_BITS)
-        if debug_checks:
-            nbits = torch.where(viol > 0, -viol, nbits)
+            seg, nbits = pack_fused4(*slots, mw, bit_offset=SLICE_HEADER_BITS)
         seg = or_slice_headers(seg.view(bsz, N_SLICES, MAX_SLICE_BYTES_COMPAT), QUANT_SCALE)
         return seg, nbits.view(bsz, N_SLICES)
 

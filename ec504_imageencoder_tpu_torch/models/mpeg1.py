@@ -13,6 +13,13 @@ reference (`dct_impl`):
   (`f32_levels`, the reference's `_generic_pipeline_from_planes`), then
   kernel B3 (VLC emission, 4:1 fusion).
 
+With `debug_checks` (the port's counterpart of the reference's
+EC504_DEBUG_CHECKS=1) raw (code, len) slots take the place of B1 and B3:
+kernel B6a for "aan", or the plain emission with its table lookups
+through kernel B5 for "f32"; the slot invariants are checked, the slots
+fused in PyTorch (`bitpack.fuse4`) and packed by B2's checked form, and a
+slice with violations reports their count negated in its bit count.
+
 On the CPU the kernels' plain twins run instead.
 
 The host part (slice sizing, regrow, header builders, `assemble`) is the
@@ -27,14 +34,16 @@ import torch
 from torch import nn
 
 from ec504_imageencoder_tpu_torch.device import resolve_device
-from ec504_imageencoder_tpu_torch.ops.bitpack import or_slice_headers
+from ec504_imageencoder_tpu_torch.ops.bitpack import fuse4, or_slice_headers
 from ec504_imageencoder_tpu_torch.ops.color import rgb_to_ycbcr, subsample_420
+from ec504_imageencoder_tpu_torch.ops.cuda_lut import block_streams_lut
 from ec504_imageencoder_tpu_torch.ops.cuda_pack import pack_fused4
-from ec504_imageencoder_tpu_torch.ops.cuda_vlc import Luts, blockize, vlc_fused4
+from ec504_imageencoder_tpu_torch.ops.cuda_vlc import Luts, blockize, to_i32_bits, vlc_fused4
 from ec504_imageencoder_tpu_torch.ops.cuda_vlc_levels import vlc_levels4
+from ec504_imageencoder_tpu_torch.ops.cuda_vlc_raw import vlc_raw
 from ec504_imageencoder_tpu_torch.ops.dct import matmul_dct
 from ec504_imageencoder_tpu_torch.ops.quant import quantize_intra
-from ec504_imageencoder_tpu_torch.ops.vlc_device import dc_predictors
+from ec504_imageencoder_tpu_torch.ops.vlc_device import dc_predictors, slot_violations
 from ec504_imageencoder_tpu_torch.ops.zigzag import zigzag_scan
 from ec504_imageencoder_tpu_torch.shared import MPEG1IntraEncoder, slice_bytes_bucket
 
@@ -77,38 +86,65 @@ class EncodeCore(nn.Module):
     def luts(self) -> Luts:
         return Luts(self.zigzag, self.ac_code, self.ac_len, self.dc_code, self.dc_len)
 
-    def forward(self, y, cb, cr, max_slice_bytes: int):
+    def forward(self, y, cb, cr, max_slice_bytes: int, debug_checks: bool = False):
         """y (B, H, W) u8, cb/cr (B, H/2, W/2) u8, H and W multiples of 16
         -> (seg (B, H/16, max_slice_bytes) u8, nbits (B, H/16) int32).
 
         nbits is each slice's true bit count, also when it exceeds
-        8 * max_slice_bytes (the segment then holds its first bytes)."""
+        8 * max_slice_bytes (the segment then holds its first bytes).
+        debug_checks: the raw-slot routes with the invariant checks (see
+        the module docstring); a slice with violations reports their count
+        negated in nbits."""
         if max_slice_bytes % 4:
             raise ValueError(f"max_slice_bytes must be a multiple of 4, got {max_slice_bytes}")
         bsz, h, _ = y.shape
         mbh = h // 16
-        if self.dct_impl == "aan":
-            v0, v1, v2, v3, flens = vlc_fused4(y, cb, cr, self.qw, self.luts())
+        mw = max_slice_bytes // 4
+        if debug_checks:
+            slots, viol = self._checked_slots(y, cb, cr)
+            seg, nbits, pviol = pack_fused4(*slots, mw, bit_offset=SLICE_HEADER_BITS, checks=True)
+            viol = viol + pviol
+            nbits = torch.where(viol > 0, -viol, nbits)
         else:
-            levels, preds = f32_levels(y, cb, cr, self.qw, self.zigzag)
-            v0, v1, v2, v3, flens = vlc_levels4(levels, preds, self.luts())
-        seg, nbits = pack_fused4(
-            v0, v1, v2, v3, flens, max_slice_bytes // 4, bit_offset=SLICE_HEADER_BITS
-        )
+            if self.dct_impl == "aan":
+                slots = vlc_fused4(y, cb, cr, self.qw, self.luts())
+            else:
+                levels, preds = f32_levels(y, cb, cr, self.qw, self.zigzag)
+                slots = vlc_levels4(levels, preds, self.luts())
+            seg, nbits = pack_fused4(*slots, mw, bit_offset=SLICE_HEADER_BITS)
         seg = or_slice_headers(seg.view(bsz, mbh, max_slice_bytes), self.qscale)
         return seg, nbits.view(bsz, mbh)
 
+    def _checked_slots(self, y, cb, cr):
+        """The raw-slot routes: -> (fused slots (v0, v1, v2, v3, flens),
+        (R,) int32 violations: slot invariants, and for "aan" the DCT
+        guard).  The raw slots are fused in stream order, the counterpart
+        of the reference's `fuse_slots_streamwise`."""
+        if self.dct_impl == "aan":
+            codes, lens, viol = vlc_raw(y, cb, cr, self.qw, self.luts())  # (R, 64, NB)
+            viol = viol + slot_violations(codes, lens)
+            codes, lens = codes.transpose(1, 2), lens.transpose(1, 2)
+        else:
+            levels, preds = f32_levels(y, cb, cr, self.qw, self.zigzag)  # (R, NB, 64)
+            comp = torch.arange(levels.shape[1], device=y.device) % 6
+            codes, lens = block_streams_lut(levels, preds, comp < 4, comp == 0)
+            viol = slot_violations(codes, lens)
+        r = codes.shape[0]
+        fused = fuse4(codes.reshape(r, -1), lens.reshape(r, -1))
+        return tuple(to_i32_bits(t) for t in fused), viol
 
-def correct_pipeline_planes(core: EncodeCore, y, cb, cr, max_slice_bytes: int):
+
+def correct_pipeline_planes(core: EncodeCore, y, cb, cr, max_slice_bytes: int,
+                            debug_checks: bool = False):
     """Padded 4:2:0 planes -> (seg, nbits); see EncodeCore.forward."""
-    return core(y, cb, cr, max_slice_bytes)
+    return core(y, cb, cr, max_slice_bytes, debug_checks)
 
 
 def correct_pipeline(core: EncodeCore, rgb, max_slice_bytes: int,
-                     color_range: str = "studio"):
+                     color_range: str = "studio", debug_checks: bool = False):
     """(B, H, W, 3) u8 RGB, H and W multiples of 16 -> (seg, nbits)."""
     y, cb, cr = rgb_to_ycbcr(rgb, color_range)
-    return core(y, subsample_420(cb), subsample_420(cr), max_slice_bytes)
+    return core(y, subsample_420(cb), subsample_420(cr), max_slice_bytes, debug_checks)
 
 
 class TorchMPEG1IntraEncoder(MPEG1IntraEncoder):
@@ -121,12 +157,17 @@ class TorchMPEG1IntraEncoder(MPEG1IntraEncoder):
     the same settings.  With "f32" it equals the reference's numpy backend
     (the port repeats its f32 operations) on every device and batch split;
     the reference's XLA backend may break an f32 tie the other way, and
-    decodes to the same PSNR within 0.05 dB."""
+    decodes to the same PSNR within 0.05 dB.
+
+    debug_checks=True is the sanitizer (the reference's
+    EC504_DEBUG_CHECKS=1): the device pipeline runs its raw-slot routes
+    with the invariant checks (see the module docstring), the bytes stay
+    the same, and a violation raises RuntimeError."""
 
     def __init__(self, quality: int = 50, frame_rate_code: int = 3,
                  gop_size: int = 15, max_slice_bytes: int | None = None,
                  dct_impl: str = "auto", color_range: str = "studio",
-                 grow_slices: bool = True, *, device):
+                 grow_slices: bool = True, debug_checks: bool = False, *, device):
         super().__init__(
             quality=quality, frame_rate_code=frame_rate_code, gop_size=gop_size,
             max_slice_bytes=max_slice_bytes, backend="torch", dct_impl=dct_impl,
@@ -134,6 +175,7 @@ class TorchMPEG1IntraEncoder(MPEG1IntraEncoder):
         )
         if self.dct_impl not in DCT_IMPLS:
             raise ValueError(f"dct_impl must be 'auto', 'aan' or 'f32', got {dct_impl!r}")
+        self.debug_checks = bool(debug_checks)
         self.device = resolve_device(device)
         self._set_quant(self.intra_q, self.qscale)
 
@@ -157,21 +199,30 @@ class TorchMPEG1IntraEncoder(MPEG1IntraEncoder):
 
     def _pipeline_once(self, padded: np.ndarray, msb: int):
         rgb = torch.from_numpy(padded).to(self.device)
-        return correct_pipeline(self.core, rgb, msb, self.color_range)
+        return correct_pipeline(self.core, rgb, msb, self.color_range, self.debug_checks)
 
     def _planes_once(self, planes, msb: int):
         y, cb, cr = (torch.from_numpy(np.ascontiguousarray(p)).to(self.device)
                      for p in planes)
-        return correct_pipeline_planes(self.core, y, cb, cr, msb)
+        return correct_pipeline_planes(self.core, y, cb, cr, msb, self.debug_checks)
 
     def _run_with_regrow(self, run_once, mbw: int):
         """The reference's regrow loop on torch outputs: fetch the bit
-        counts, regrow once if a slice overflowed (nbits is exact, so one
+        counts, raise on a negated one (the violations that debug_checks
+        found), regrow once if a slice overflowed (nbits is exact, so one
         regrow lands), then fetch only the used byte prefix."""
         msb = self.resolve_slice_bytes(mbw)
         for _attempt in range(3):
             seg_dev, bits_dev = run_once(msb)
             bits = bits_dev.cpu().numpy()
+            if int(bits.min(initial=0)) < 0:
+                viol = -bits[bits < 0]
+                raise RuntimeError(
+                    f"invariant violations in {viol.size} slice(s) "
+                    f"({int(viol.sum())} total hits): VLC slot length/masking, "
+                    "DCT magnitude or pack length/overlap invariant broken; see "
+                    "ops.vlc_device.slot_violations and ops.cuda_pack"
+                )
             need_bits = int(bits.max(initial=0))
             if need_bits <= 8 * msb:
                 break

@@ -8,7 +8,11 @@
   at bit offset cumsum(lens) + bit_offset, MSB first, and spans at most
   5 consecutive 32-bit words.  Words past `max_words` are dropped, but
   `nbits` is the true total, so the caller can regrow exactly.
-  Contributions are bit-disjoint, so `index_add_` equals an OR.
+  Contributions are bit-disjoint, so `index_add_` equals an OR.  With
+  `checks` it also counts what the checked pack kernel counts: fused
+  lengths outside [0, 128], and words whose contributions overlap
+  (disjoint bits add without carries, so an overlap shows as a popcount
+  of the sum below the sum of the popcounts).
 * `pack_words`: the same for plain <= 32-bit codes (the reference's
   `ops/bitpack.pack_words`).
 * `words_to_bytes`, `or_slice_headers`: big-endian serialisation and
@@ -70,10 +74,25 @@ def fuse4(codes: torch.Tensor, lens: torch.Tensor):
     return v0, v1, v2, v3, l1b + l2b
 
 
-def pack_words4(v0, v1, v2, v3, flens, max_words: int, bit_offset: int = 0):
+def _popcount(x):
+    """Set bits of each non-negative int64."""
+    x = x - ((x >> 1) & 0x5555555555555555)
+    x = (x & 0x3333333333333333) + ((x >> 2) & 0x3333333333333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F0F0F0F0F
+    x = x + (x >> 8)
+    x = x + (x >> 16)
+    return (x + (x >> 32)) & 0x7F
+
+
+def pack_words4(v0, v1, v2, v3, flens, max_words: int, bit_offset: int = 0,
+                checks: bool = False):
     """(n, KF) <= 128-bit values (four 32-bit words each, any integer
     dtype holding the same bits) + (n, KF) lengths ->
-    (words (n, max_words) int64, nbits (n,) int64)."""
+    (words (n, max_words) int64, nbits (n,) int64), and with `checks`
+    viol (n,) int64: lengths outside [0, 128] plus overlapping words.
+
+    A value whose length does not fit its 160-bit window, or a word below
+    the buffer (after a negative length), is not placed."""
     n, kf = flens.shape
     dev = flens.device
     lens = flens.to(_I64)
@@ -96,19 +115,24 @@ def pack_words4(v0, v1, v2, v3, flens, max_words: int, bit_offset: int = 0):
         for i in range(5)
     ]
     out = torch.zeros(n * max_words, dtype=_I64, device=dev)
+    ones = torch.zeros_like(out) if checks else None
     rows = torch.arange(n, device=dev, dtype=_I64)[:, None] * max_words
     for j in range(5):
         wj = torch.zeros_like(lens)
         for qq in range(5 - j):
             wj = torch.where(q == qq, f[j + qq], wj)
         idx = word + j
-        keep = idx < max_words
-        out.index_add_(
-            0,
-            torch.where(keep, rows + idx, 0).reshape(-1),
-            torch.where(keep, wj, 0).reshape(-1),
-        )
-    return out.reshape(n, max_words), nbits
+        keep = (idx >= 0) & (idx < max_words)
+        at = torch.where(keep, rows + idx, 0).reshape(-1)
+        wj = torch.where(keep, wj, 0).reshape(-1)
+        out.index_add_(0, at, wj)
+        if checks:
+            ones.index_add_(0, at, _popcount(wj))
+    if not checks:
+        return out.reshape(n, max_words), nbits
+    bad_len = ((lens < 0) | (lens > 128)).sum(dim=-1)
+    overlap = (_popcount(out) != ones).reshape(n, max_words).sum(dim=-1)
+    return out.reshape(n, max_words), nbits, bad_len + overlap
 
 
 def pack_words(codes, lens, max_words: int, bit_offset: int = 0):

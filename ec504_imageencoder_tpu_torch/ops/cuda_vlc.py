@@ -101,11 +101,15 @@ def blockize(y, cb, cr) -> torch.Tensor:
     return torch.cat([luma, chroma(cb), chroma(cr)], dim=3)
 
 
-def vlc_fused4_plain(y, cb, cr, qw, luts: Luts):
-    """Plain twin of the kernel: same arguments, same outputs."""
+def block_slots(y, cb, cr, qw, luts: Luts):
+    """The plain integer-DCT pipeline of B1 and B6a: padded planes ->
+    (codes, lens) int64 (R, NB, 64) per slice row in stream order, MB
+    header and EOB folded in, and the AAN coefficients (B, mbh, mbw, 6,
+    8, 8) int32."""
     blocks = blockize(y, cb, cr)
     bsz, mbh, mbw = blocks.shape[:3]
-    dc, lvl = quantize_intra(aan_dct(blocks), qw)
+    f = aan_dct(blocks)
+    dc, lvl = quantize_intra(f, qw)
     zz = zigzag_scan(lvl, luts.zigzag)
     lane = torch.arange(64, device=y.device)
     zz = torch.where(lane == 0, dc[..., None], zz)
@@ -115,11 +119,19 @@ def vlc_fused4_plain(y, cb, cr, qw, luts: Luts):
         luts.dc_code, luts.dc_len, luts.ac_code, luts.ac_len,
     )
     r = bsz * mbh
+    return codes.reshape(r, -1, 64), lens.reshape(r, -1, 64), f
+
+
+def vlc_fused4_plain(y, cb, cr, qw, luts: Luts):
+    """Plain twin of the kernel: same arguments, same outputs."""
+    codes, lens, _ = block_slots(y, cb, cr, qw, luts)
+    r = codes.shape[0]
     fused = fuse4(codes.reshape(r, -1), lens.reshape(r, -1))
     return tuple(to_i32_bits(t) for t in fused)
 
 
-def _check(y, cb, cr, qw, luts: Luts) -> None:
+def check_planes(y, cb, cr, qw, luts: Luts) -> None:
+    """Raise unless the arguments are what B1 and B6a take."""
     if y.dim() != 3:
         raise ValueError(f"y must be (B, H, W), got {tuple(y.shape)}")
     bsz, h, w = y.shape
@@ -155,7 +167,7 @@ def vlc_fused4(y, cb, cr, qw, luts: Luts):
     slice, the fused slots of its blocks in stream order; v0..v3 hold the
     u32 words (most significant first) of values of flens <= 128 bits."""
     global launches
-    _check(y, cb, cr, qw, luts)
+    check_planes(y, cb, cr, qw, luts)
     if y.device.type == "cpu":
         return vlc_fused4_plain(y, cb, cr, qw, luts)
     if y.device.type != "cuda":

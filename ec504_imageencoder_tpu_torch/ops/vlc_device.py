@@ -4,6 +4,8 @@ Port of `ec504_imageencoder_tpu.ops.vlc_device`:
 
 * `block_streams_correct64` (ISO correct mode, 64 slots with the MB
   header and EOB folded in) and `models/mpeg1._dc_predictors`;
+  `emit_correct64` is the same with the table lookups passed in (the
+  lookup kernel B5 serves them in `ops/cuda_lut.py`);
 * `block_streams_compat` and `ac_codes_compat` (the reference C
   encoder's bug-for-bug compat emission, 65 slots).
 
@@ -32,7 +34,7 @@ def _bitlength8(v):
     return sz
 
 
-def _runs(zz, force_slot0: bool):
+def zero_runs(zz, force_slot0: bool):
     """Zeros before each slot since the previous nonzero one.  With
     force_slot0 slot 0 counts as nonzero (correct mode: AC runs never
     reach into the DC); compat mode lets a zero DC count as a zero."""
@@ -65,13 +67,15 @@ def _table(run, al, ac_code, ac_len):
     return t_code, torch.where(in_range, ac_len.reshape(-1).to(_I64)[li], 0)
 
 
-def ac_codes_correct(lvl, run, ac_code, ac_len):
+def ac_codes_correct(lvl, run, ac_table):
     """Per-slot ISO AC (code, len): table B.5c/d code + sign bit, the
-    '11s' special case, or a 20/28-bit escape carrying the TRUE run."""
+    '11s' special case, or a 20/28-bit escape carrying the TRUE run.
+    ac_table(run, |level|) -> (code without sign bit, len), len 0 where
+    the table has no row."""
     sign = lvl < 0
     sbit = sign.to(_I64)
     al = lvl.abs()
-    t_code, t_len = _table(run, al, ac_code, ac_len)
+    t_code, t_len = ac_table(run, al)
     special = (run == 0) & (al == 1)
     in_table = ~special & (t_len > 0)
 
@@ -91,6 +95,19 @@ def block_streams_correct64(zz, dc_pred, is_luma, mb_first, dc_code, dc_len,
     is_luma, mb_first: (...,).  The 2-bit macroblock header '11' folds
     into the DC slot where mb_first is set, the EOB '10' into slot 63.
     Returns int64 (codes, lens) of shape (..., 64)."""
+
+    def dc_table(luma, sz):
+        ti = luma * dc_code.shape[-1] + sz
+        return dc_code.reshape(-1).to(_I64)[ti], dc_len.reshape(-1).to(_I64)[ti]
+
+    return emit_correct64(zz, dc_pred, is_luma, mb_first, dc_table,
+                          lambda run, al: _table(run, al, ac_code, ac_len))
+
+
+def emit_correct64(zz, dc_pred, is_luma, mb_first, dc_table, ac_table):
+    """`block_streams_correct64` with its two table lookups passed in:
+    dc_table(is_luma, size) -> dct_dc_size (code, len); ac_table as for
+    `ac_codes_correct`.  Both take and give int64 tensors."""
     zz = zz.to(_I64)
     nz = zz != 0
     dc = zz[..., 0]
@@ -99,16 +116,14 @@ def block_streams_correct64(zz, dc_pred, is_luma, mb_first, dc_code, dc_len,
     one = torch.ones_like(sz)
     v = torch.where(diff >= 0, diff, diff + _shl(one, sz) - 1)
     dc_bits = v & (_shl(one, sz) - 1)
-    ti = is_luma.to(_I64) * dc_code.shape[-1] + sz
-    size_code = dc_code.reshape(-1).to(_I64)[ti]
-    size_len = dc_len.reshape(-1).to(_I64)[ti]
+    size_code, size_len = dc_table(is_luma.to(_I64), sz)
     code0 = torch.where(sz > 0, _shl(size_code, sz) | dc_bits, size_code)
     len0 = size_len + sz
     first = mb_first.to(torch.bool)
     code0 = torch.where(first, _shl(torch.full_like(len0, 0b11), len0) | code0, code0)
     len0 = len0 + 2 * first.to(_I64)
 
-    ac, ac_l = ac_codes_correct(zz, _runs(zz, force_slot0=True), ac_code, ac_len)
+    ac, ac_l = ac_codes_correct(zz, zero_runs(zz, force_slot0=True), ac_table)
     ac = torch.where(nz, ac, 0)
     ac_l = torch.where(nz, ac_l, 0)
     lane = torch.arange(64, device=zz.device)
@@ -148,7 +163,7 @@ def block_streams_compat(zz, is_luma, dc_code, dc_len, ac_code, ac_len):
     first nonzero AC with no zero before it on, the DC counting as a
     position); slot 64: EOB."""
     zz = zz.to(_I64)
-    zeros_before = _runs(zz, force_slot0=False)
+    zeros_before = zero_runs(zz, force_slot0=False)
     nz = zz != 0
     one = torch.ones_like(zz[..., 0])
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ec504_imageencoder_tpu_torch.shared import ac_packed_table, dc_packed_table
 from ec504_imageencoder_tpu_torch.shared import tables as ref
 
 # ZIGZAG_GATHER[k] = flat (v*8 + u) index of the k-th scanned coefficient
@@ -33,3 +34,10 @@ DC_CODE = torch.from_numpy(
 DC_LEN = torch.from_numpy(
     np.stack([ref.DC_SIZE_CHROMA_LEN, ref.DC_SIZE_LUMA_LEN]).astype(np.int32)
 )
+
+# the packed tables of the lookup kernel B5 (the reference's ops/mxu_lut.py):
+# the ISO AC table rank-compressed to 112 entries `code | len << 16` (rank =
+# the row of (run, |level|), see ops/cuda_lut.py::rank_base), and the
+# dct_dc_size table, 32 entries `code | len << 8` at is_luma * 16 + size
+AC_PACKED = torch.from_numpy(ac_packed_table().astype(np.int32))
+DC_PACKED = torch.from_numpy(dc_packed_table().astype(np.int32))

@@ -16,9 +16,17 @@ import numpy as np
 import pytest
 import torch
 
+from ec504_imageencoder_tpu_torch.models import mpeg1
 from ec504_imageencoder_tpu_torch.models.encoder import encode_compat
 from ec504_imageencoder_tpu_torch.models.mpeg1 import TorchMPEG1IntraEncoder, f32_levels
-from ec504_imageencoder_tpu_torch.ops import cuda_pack, cuda_vlc, cuda_vlc_compat, cuda_vlc_levels
+from ec504_imageencoder_tpu_torch.ops import (
+    cuda_lut,
+    cuda_pack,
+    cuda_vlc,
+    cuda_vlc_compat,
+    cuda_vlc_levels,
+    cuda_vlc_raw,
+)
 from ec504_imageencoder_tpu_torch.ops.cuda_vlc import Luts
 from ec504_imageencoder_tpu_torch.ops.dct import matmul_dct
 from ec504_imageencoder_tpu_torch.shared import (
@@ -56,23 +64,26 @@ def test_vlc_kernel_matches_twin(cuda, quality, shape):
         assert torch.equal(g, w)
 
 
+def _fused_slots(rng, n, kf, dev):
+    """(n, kf) random fused slots of up to 128 bits, each value masked to
+    its length (v0 is the most significant word): [v0, v1, v2, v3, flens]."""
+    flens = rng.integers(0, 129, (n, kf))
+    flens[rng.random((n, kf)) < 0.3] = 0
+    words = rng.integers(0, 1 << 32, (4, n, kf), dtype=np.uint64)
+    for i in range(4):
+        keep = np.clip(flens - 32 * (3 - i), 0, 32).astype(np.uint64)
+        words[i] &= (np.uint64(1) << keep) - np.uint64(1)
+    vs = [torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(dev) for w in words]
+    return [*vs, torch.from_numpy(flens.astype(np.int32)).to(dev)]
+
+
 @pytest.mark.parametrize("max_words", [640, 7, 342528 // 4])
 def test_pack_kernel_matches_twin(cuda, max_words):
     """Random values of up to 128 bits; 7 words overflows every slice,
     342528 B exceeds shared memory and takes the global-memory path."""
-    rng = np.random.default_rng(max_words)
-    n, kf = 5, 3000
-    flens = rng.integers(0, 129, (n, kf))
-    flens[rng.random((n, kf)) < 0.3] = 0
-    words = rng.integers(0, 1 << 32, (4, n, kf), dtype=np.uint64)
-    # mask each value to its length (v0 is the most significant word)
-    for i in range(4):
-        keep = np.clip(flens - 32 * (3 - i), 0, 32).astype(np.uint64)
-        words[i] &= (np.uint64(1) << keep) - np.uint64(1)
-    vs = [torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(cuda) for w in words]
-    fl = torch.from_numpy(flens.astype(np.int32)).to(cuda)
-    seg, nbits = cuda_pack.pack_fused4(*vs, fl, max_words, bit_offset=38)
-    seg_t, nbits_t = cuda_pack.pack_fused4_plain(*vs, fl, max_words, bit_offset=38)
+    slots = _fused_slots(np.random.default_rng(max_words), 5, 3000, cuda)
+    seg, nbits = cuda_pack.pack_fused4(*slots, max_words, bit_offset=38)
+    seg_t, nbits_t = cuda_pack.pack_fused4_plain(*slots, max_words, bit_offset=38)
     assert torch.equal(nbits, nbits_t)
     assert torch.equal(seg, seg_t)
 
@@ -169,3 +180,83 @@ def test_new_wrappers_reject_bad_input(cuda):
     y_t = torch.zeros((1, 96, 144), dtype=torch.uint8, device=cuda).transpose(1, 2)
     with pytest.raises(ValueError):
         cuda_vlc_compat.vlc_compat_slots(y_t, y, y, q, Luts.compat(cuda))
+
+
+# ---- the sanitizer's kernels: B6a, B5 and B2's checked form ---------------
+
+@pytest.mark.parametrize("quality", [5, 50, 95])
+@pytest.mark.parametrize("shape", [(2, 32, 48), (1, 48, 4096), (3, 16, 16)])
+def test_raw_kernel_matches_twin(cuda, quality, shape):
+    rng = np.random.default_rng(quality * 11 + shape[2])
+    core = TorchMPEG1IntraEncoder(quality=quality, dct_impl="aan", device=cuda).core
+    planes = _planes(rng, *shape, cuda)
+    got = cuda_vlc_raw.vlc_raw(*planes, core.qw, core.luts())
+    want = cuda_vlc_raw.vlc_raw_plain(*planes, core.qw, core.luts())
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert not got[2].any()
+
+
+@pytest.mark.parametrize("n", [1, 1000, 3 * 2**20 + 7])
+def test_lut_kernel_matches_twin(cuda, n):
+    """Indices in and around both packed tables, out-of-range ones too."""
+    rng = np.random.default_rng(n)
+    idx = torch.from_numpy(rng.integers(-40, 160, n).astype(np.int32)).to(cuda)
+    for table in (cuda_lut.AC_PACKED, cuda_lut.DC_PACKED):
+        t = table.to(cuda)
+        assert torch.equal(cuda_lut.lut_lookup(idx, t), cuda_lut.lut_lookup_plain(idx, t))
+
+
+@pytest.mark.parametrize("max_words", [640, 7, 342528 // 4])
+def test_checked_pack_kernel_matches_twin(cuda, max_words):
+    """Healthy slots: the unchecked kernel's bytes and no violation.  A
+    fused length of 200: the same count as the twin.  Overlapping bits: a
+    count above 0 (its multiplicity depends on the order of the atomics)."""
+    slots = _fused_slots(np.random.default_rng(max_words), 5, 3000, cuda)
+    seg, nbits, viol = cuda_pack.pack_fused4(*slots, max_words, bit_offset=38, checks=True)
+    seg_u, nbits_u = cuda_pack.pack_fused4(*slots, max_words, bit_offset=38)
+    assert torch.equal(seg, seg_u) and torch.equal(nbits, nbits_u)
+    assert not viol.any()
+
+    bad = [t.clone() for t in slots]
+    bad[4][1, 17] = 200
+    bad[4][3, 5] = 129
+    got = cuda_pack.pack_fused4(*bad, max_words, bit_offset=38, checks=True)
+    want = cuda_pack.pack_fused4_plain(*bad, max_words, bit_offset=38, checks=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert got[2].tolist() == [0, 1, 0, 1, 0]
+
+    over = [t.clone() for t in slots]
+    for t in over[:3]:
+        t[2, :20] = 0
+    over[3][2, :20] = -1  # 16 one bits above each 16-bit length
+    over[4][2, :20] = 16
+    got = cuda_pack.pack_fused4(*over, max_words, bit_offset=38, checks=True)
+    want = cuda_pack.pack_fused4_plain(*over, max_words, bit_offset=38, checks=True)
+    assert torch.equal(got[1], want[1])
+    assert ((got[2] > 0) == (want[2] > 0)).all() and got[2].tolist()[2] > 0
+
+
+def test_debug_checks_encoder(cuda, monkeypatch):
+    """debug_checks on the card: the bytes of the numpy reference, through
+    B6a (q=50) or B5 (q=85) and the checked B2, never B1 or B3; an injected
+    slot violation raises."""
+    rng = np.random.default_rng(6)
+    frames = rng.integers(0, 256, (2, 40, 56, 3), dtype=np.uint8)
+    for quality, kernel in ((50, cuda_vlc_raw), (85, cuda_lut)):
+        cuda_vlc.launches = cuda_vlc_levels.launches = cuda_vlc_raw.launches = 0
+        cuda_lut.launches = cuda_pack.launches = cuda_pack.launches_checked = 0
+        enc = TorchMPEG1IntraEncoder(quality=quality, debug_checks=True, device=cuda)
+        assert enc.encode(frames) == MPEG1IntraEncoder(quality=quality, backend="numpy").encode(frames)
+        assert kernel.launches > 0 and cuda_pack.launches_checked > 0
+        assert cuda_vlc.launches == cuda_vlc_levels.launches == cuda_pack.launches == 0
+
+    def corrupt(*args):
+        codes, lens, viol = cuda_vlc_raw.vlc_raw(*args)
+        lens[0, 5, 0] = 31
+        return codes, lens, viol
+
+    monkeypatch.setattr(mpeg1, "vlc_raw", corrupt)
+    with pytest.raises(RuntimeError, match="invariant violations"):
+        TorchMPEG1IntraEncoder(quality=50, debug_checks=True, device=cuda).encode(frames)

@@ -189,3 +189,19 @@ def test_f32_dct_bytes_equal_numpy_reference(odd_frames, quality):
     for frames in (odd_frames, _f32_frames()):
         want = MPEG1IntraEncoder(quality=quality, backend="numpy").encode(frames)
         assert TorchMPEG1IntraEncoder(quality=quality, device="cpu").encode(frames) == want
+
+
+@pytest.mark.parametrize("quality", [50, 85], ids=["q50-aan", "q85-f32"])
+def test_debug_checks_bytes_equal(odd_frames, quality):
+    """The sanitizer's raw-slot routes (B6a at q=50, the B5 lookups at
+    q=85, then the checked pack) give the bytes of the production path and
+    of the numpy reference, for both intakes."""
+    planes = _planes(odd_frames)
+    dbg = TorchMPEG1IntraEncoder(quality=quality, debug_checks=True, device="cpu")
+    prod = TorchMPEG1IntraEncoder(quality=quality, device="cpu")
+    ref = MPEG1IntraEncoder(quality=quality, backend="numpy")
+    assert dbg.debug_checks and dbg.dct_impl == ("aan" if quality < 70 else "f32")
+    want = ref.encode(odd_frames)
+    assert dbg.encode(odd_frames) == prod.encode(odd_frames) == want
+    want = ref.encode_from_planes(*planes)
+    assert dbg.encode_from_planes(*planes) == prod.encode_from_planes(*planes) == want

@@ -18,10 +18,12 @@ import numpy as np
 import ec504_imageencoder_tpu_torch.models.encoder as c
 import ec504_imageencoder_tpu_torch.models.mpeg1 as m
 import ec504_imageencoder_tpu_torch.ops._build
+import ec504_imageencoder_tpu_torch.ops.cuda_lut
 import ec504_imageencoder_tpu_torch.ops.cuda_pack
 import ec504_imageencoder_tpu_torch.ops.cuda_vlc
 import ec504_imageencoder_tpu_torch.ops.cuda_vlc_compat
 import ec504_imageencoder_tpu_torch.ops.cuda_vlc_levels
+import ec504_imageencoder_tpu_torch.ops.cuda_vlc_raw
 import ec504_imageencoder_tpu_torch.shared
 frames = np.random.default_rng(0).integers(0, 256, (2, 24, 40, 3), dtype=np.uint8)
 enc = m.TorchMPEG1IntraEncoder(quality=50, device="cpu")
@@ -30,8 +32,14 @@ es2 = enc.encode_from_planes(frames[..., 0], frames[:, ::2, ::2, 1], frames[:, :
 assert es[:4] == es2[:4] == bytes([0, 0, 1, 0xB3])
 hq = m.TorchMPEG1IntraEncoder(quality=85, device="cpu")
 assert hq.dct_impl == "f32" and hq.encode(frames)[:4] == es[:4]
+for q in (50, 85):
+    dbg = m.TorchMPEG1IntraEncoder(quality=q, debug_checks=True, device="cpu")
+    want = m.TorchMPEG1IntraEncoder(quality=q, device="cpu").encode(frames)
+    assert dbg.encode(frames) == want
 mpeg, dumps = c.encode_compat(np.zeros((2, 144, 96, 3), np.uint8), 12, device="cpu")
 assert mpeg[:4] == bytes([0, 0, 1, 0xBA]) and len(dumps) == 2
+mpeg2, _ = c.encode_compat(np.zeros((2, 144, 96, 3), np.uint8), 12, device="cpu", debug_checks=True)
+assert mpeg2 == mpeg
 assert not any(k == "jax" or k.startswith(("jax.", "jaxlib")) for k in sys.modules
                if sys.modules[k] is not None)
 print("OK", len(es), len(es2))

@@ -7,7 +7,9 @@ kernel in interpret mode, fed the same input in its own layout:
 * B3 `vlc_levels4`: `vlc_slots_tpu` + `fuse_slots_streamwise`;
 * B4a `vlc_compat_slots`: `vlc_compat_slots_from_blocks_tpu`;
 * B4b `vlc_compat_fused4`: `vlc_compat_fused_slots_from_blocks_tpu` +
-  `fused_stack_to_stream`.
+  `fused_stack_to_stream`;
+* B6a `vlc_raw`: `vlc_from_blocks_tpu`, slot for slot, and the
+  reference's numpy emission `block_streams_correct64(xp=np)`.
 
 The cases of each kernel share one shape (6 slice rows of 18 blocks; 12
 compat rows of 54), so the Pallas interpreter compiles once per kernel.
@@ -21,20 +23,24 @@ import torch
 from ec504_imageencoder_tpu.models.encoder import compat_blockize_px64
 from ec504_imageencoder_tpu.models.mpeg1 import pad_planes_to_macroblocks, quality_to_quant
 from ec504_imageencoder_tpu.ops.dct import aan_dct_nb, dct_matrix_f32
+from ec504_imageencoder_tpu.models.mpeg1 import _dc_predictors as ref_dc_predictors
+from ec504_imageencoder_tpu.ops.dct import aan_dct as ref_aan_dct
 from ec504_imageencoder_tpu.ops.pallas_vlc import (
     fuse_slots_streamwise,
     fused_stack_to_stream,
     vlc_compat_fused_slots_from_blocks_tpu,
     vlc_compat_slots_from_blocks_tpu,
+    vlc_from_blocks_tpu,
     vlc_fused_slots_from_blocks_tpu,
     vlc_slots_tpu,
 )
 from ec504_imageencoder_tpu.ops.quant import quantize as ref_quantize
 from ec504_imageencoder_tpu.ops.vlc_device import block_streams_compat as ref_block_streams_compat
+from ec504_imageencoder_tpu.ops.vlc_device import block_streams_correct64 as ref_block_streams_correct64
 from ec504_imageencoder_tpu.ops.zigzag import zigzag_scan as ref_zigzag_scan
 from ec504_imageencoder_tpu.utils.tables import ZIGZAG_GATHER, scale_quantization_matrix
 from ec504_imageencoder_tpu_torch.models.mpeg1 import f32_levels
-from ec504_imageencoder_tpu_torch.ops import cuda_vlc, cuda_vlc_compat, cuda_vlc_levels
+from ec504_imageencoder_tpu_torch.ops import cuda_vlc, cuda_vlc_compat, cuda_vlc_levels, cuda_vlc_raw
 from ec504_imageencoder_tpu_torch.ops.cuda_vlc import Luts
 from ec504_imageencoder_tpu_torch.ops.dct import aan_dct
 from ec504_imageencoder_tpu_torch.ops.quant import quantize, quantize_intra
@@ -113,6 +119,78 @@ def test_wrapper_checks_inputs():
         cuda_vlc.vlc_fused4(y.int(), c, c, qw, luts)             # dtype
     with pytest.raises(TypeError):
         cuda_vlc.vlc_fused4(y, c, c, qw.long(), luts)
+
+
+# ---- B6a: planes -> raw slots (the sanitizer's integer-DCT route) --------
+
+def _reference_raw_slots(y, cb, cr, qw):
+    """The reference's numpy chain (models/mpeg1._generic_pipeline_from_planes
+    up to the emission) in the kernel's layout: (codes, lens) (R, 64, NB)."""
+    px = _px64_blocks(y, cb, cr)                             # (R, 64, NB), row = px*8 + py
+    r, _, nb = px.shape
+    blocks = px.reshape(r, 8, 8, nb).transpose(0, 3, 2, 1).astype(np.int32)  # (R, NB, py, px)
+    f = ref_aan_dct(blocks, np)
+    dc = np.clip((f[..., 0, 0] + 4) >> 3, 0, 255)
+    num = 16 * np.abs(f) + qw
+    lvl = np.sign(f) * np.clip(num // (2 * qw), 0, 255)
+    zz = ref_zigzag_scan(lvl, np)
+    zz[..., 0] = dc
+    bsz, mbh = y.shape[0], y.shape[1] // 16
+    pred = ref_dc_predictors(dc.reshape(bsz, mbh, nb // 6, 6), bsz, mbh, nb // 6, np).reshape(r, nb)
+    comp = np.arange(nb) % 6
+    codes, lens = ref_block_streams_correct64(
+        zz, pred, np.broadcast_to(comp < 4, (r, nb)), np, mb_first=np.broadcast_to(comp == 0, (r, nb)))
+    return codes.transpose(0, 2, 1), lens.transpose(0, 2, 1)
+
+
+@pytest.mark.parametrize("quality", [5, 50, 95])
+@pytest.mark.parametrize("frames,height,width,noise", CASES)
+def test_raw_twin_matches_pallas_kernel(quality, frames, height, width, noise):
+    """B6a's twin against `vlc_from_blocks_tpu(interpret=True)` and the
+    reference's numpy emission, slot for slot; the DCT guard stays 0."""
+    rng = np.random.default_rng(quality * 100 + height + width + noise)
+    y, cb, cr = pad_planes_to_macroblocks(*_planes(rng, frames, height, width, noise))
+    intra_q, qscale = quality_to_quant(quality)
+    qw = (intra_q * qscale).astype(np.int32)
+
+    codes, lens = vlc_from_blocks_tpu(_px64_blocks(y, cb, cr), qw, interpret=True)
+    got_c, got_l, guard = cuda_vlc_raw.vlc_raw(
+        *(torch.from_numpy(p) for p in (y, cb, cr)), torch.from_numpy(qw), Luts.default("cpu"))
+    assert got_c.dtype == got_l.dtype == guard.dtype == torch.int32
+    assert np.array_equal(got_c.numpy(), np.asarray(codes).view(np.int32))
+    assert np.array_equal(got_l.numpy(), np.asarray(lens))
+    want_c, want_l = _reference_raw_slots(y, cb, cr, qw)
+    assert np.array_equal(got_c.numpy().view(np.uint32), want_c)
+    assert np.array_equal(got_l.numpy(), want_l)
+    assert guard.tolist() == [0] * got_c.shape[0]
+    if noise and quality == 5:
+        assert (got_l[:, 1:] == 20).any()  # 20-bit escapes
+
+
+def test_raw_twin_dct_guard(monkeypatch):
+    """The guard counts, per slice row, the blocks whose largest |F|
+    reaches 2^19 (u8 pixels never do: the coefficients are scaled here)."""
+    y = torch.zeros((1, 32, 32), dtype=torch.uint8)
+    y[0, :8, :8] = 255  # one luma block of row 0: F00 = 2042, 2042 * 512 >= 2^19
+    c = torch.zeros((1, 16, 16), dtype=torch.uint8)
+    real = cuda_vlc.aan_dct
+    monkeypatch.setattr(cuda_vlc, "aan_dct", lambda b: real(b) * 512)
+    _, _, guard = cuda_vlc_raw.vlc_raw(y, c, c, torch.ones((8, 8), dtype=torch.int32) * 16,
+                                       Luts.default("cpu"))
+    assert guard.tolist() == [1, 0]
+
+
+def test_raw_wrapper_checks_inputs():
+    y = torch.zeros((1, 32, 32), dtype=torch.uint8)
+    c = torch.zeros((1, 16, 16), dtype=torch.uint8)
+    qw = torch.ones((8, 8), dtype=torch.int32)
+    luts = Luts.default("cpu")
+    with pytest.raises(ValueError):
+        cuda_vlc_raw.vlc_raw(y[:, :30], c, c, qw, luts)           # not padded
+    with pytest.raises(TypeError):
+        cuda_vlc_raw.vlc_raw(y, c, c.int(), qw, luts)
+    with pytest.raises(TypeError):
+        cuda_vlc_raw.vlc_raw(y, c, c, qw, Luts(*(t.long() for t in luts)))
 
 
 # ---- B3: levels -> fused slots (the high-quality path's emission) --------
