@@ -6,6 +6,13 @@ PyTorch built for CUDA:
 
     python3 chip_smoke.py
 
+Every encode on the card is held against the same encoder on the CPU
+(`device="cpu"`, the kernels' plain twins) for the same frames, and
+compat mode also against the reference C encoder's golden stream; the
+CPU tests hold the CPU path byte-equal to the JAX package.  Each
+configuration's CPU bytes are computed once and reused by every card
+route that must equal them.
+
 Phases (any failure raises and exits non-zero; there is no CPU path):
 
 1. print the card's name and power limit (nvidia-smi) and build every
@@ -17,9 +24,8 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    slice buffer that overflows and one too large for shared memory: exact;
 4. the q=50 main path: TorchMPEG1IntraEncoder(quality=50, device="cuda")
    .encode() and .encode_from_planes() on 16 x 1080p frames, plus a forced
-   slice regrow, byte-equal to the host numpy reference encoder; the
-   stream decodes through the spec decoder (PSNR printed); the B1 and B2
-   launch counts, reset just before, went up;
+   slice regrow, byte-equal to the CPU path; the B1 and B2 launch counts,
+   reset just before, went up;
 5. steady-state times with CUDA events: B1 and B2 against their twins,
    and q=50 encode()/encode_from_planes() in frames/s with every output
    byte fetched to the host;
@@ -30,16 +36,14 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    their twins on the 30 golden frames and on 480 frames of 400 x 600
    (16 copies of the golden sequence): exact;
 8. the q=85 path (f32 DCT): encode() and encode_from_planes() on the 16 x
-   1080p frames; the stream decodes within 0.05 dB PSNR of the numpy
-   reference encoder (bytes compared too); the same bytes for 16 frames
+   1080p frames byte-equal to the CPU path; the same bytes for 16 frames
    at once, 2 x 8 and 16 x 1 (first_frame_index), and with TF32 matmuls
-   allowed; dct_impl="aan" at q=85 byte-equal to the numpy reference; the
-   B3 and B2 launch counts went up and B1's did not;
+   allowed; dct_impl="aan" at q=85 byte-equal to the CPU path; the B3 and
+   B2 launch counts went up and B1's did not;
 9. compat mode: encode_compat(device="cuda") equals the golden stream and
    .bit dump md5s on the 30 golden frames, also with debug_checks (raw
-   slots through B4a, then B2's checked form), and equals the numpy
-   reference encode_compat on the 480 frames; the B4b and B4a launch
-   counts went up;
+   slots through B4a, then B2's checked form), and equals the CPU path's
+   encode_compat on the 480 frames; the B4b and B4a launch counts went up;
 10. times: B3, B4b and B4a against their twins, q=85
    encode()/encode_from_planes() and compat encode_compat() in frames/s;
 11. kernel B6a (vlc_raw, the sanitizer's raw slots) against its twin on
@@ -53,15 +57,25 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    on injected overlapping bits;
 14. the sanitizer: TorchMPEG1IntraEncoder(debug_checks=True) encode() and
    encode_from_planes() on the 16 x 1080p frames at q=50 (through B6a)
-   and q=85 (through B5), byte-equal to the numpy reference bytes of
-   phases 4 and 8; B6a / B5 and the checked B2 launch, B1, B3 and the
-   unchecked B2 do not; a slot violation injected on the card raises
-   RuntimeError;
+   and q=85 (through B5), byte-equal to the CPU bytes of phases 4 and 8;
+   B6a / B5 and the checked B2 launch, B1, B3 and the unchecked B2 do
+   not; a slot violation injected on the card raises RuntimeError;
 15. times: B6a, B5 and the checked B2 against their twins, and the
-   debug_checks encode()/encode_from_planes() in frames/s.
+   debug_checks encode()/encode_from_planes() in frames/s;
+16. kernel B6b (vlc_fused8) against its twin on the 16 x 1080p planes and
+   the 1000 x 1400 noise, and kernel B6c (pack_fused8) against its twin
+   on those slots with the auto buffer, an overflowing buffer and one too
+   large for shared memory: exact;
+17. the 8:1-fusion path: TorchMPEG1IntraEncoder(quality=50, fuse=8)
+   encode() and encode_from_planes() on the 16 x 1080p frames and a
+   forced regrow, byte-equal to the CPU bytes of phase 4; B6b and B6c
+   launch, B1 and the unchecked B2 do not;
+18. times: B6b and B6c against their twins, fuse=8 frames/s.
 
-The line before the last is a JSON summary of the kernels; the last line
-is {"ok": true, "device": {...}}.
+The line before the last is a JSON summary of the kernels (time, twin
+time, least time the card could take and what sets it, the time of one
+PyTorch call computing the same function where there is one); the last
+line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -80,6 +94,21 @@ QUALITY = 50
 HQ_QUALITY = 85
 COMPAT_QUALITY = 12
 COMPAT_COPIES = 16  # 480 frames of 400 x 600
+
+# The least time the card could take for a kernel's work: the
+# larger of the bytes a function must move over the H100's 3.35 TB/s and
+# its integer operations over the H100's 32-bit integer issue rate, 64
+# add/shift/compare/multiply-add per SM per clock (CUDA C++ Programming
+# Guide, compute capability 9.0) x 132 SMs x 1.98 GHz.
+MEM_BYTES_PER_S = 3.35e12
+INT_OPS_PER_S = 64 * 132 * 1.98e9
+# Integer operations per 8x8 block of the planes -> slots kernels: the AAN
+# DCT (16 butterflies of 36 adds and multiplies, 64 descaling shifts),
+# quantization (6 per coefficient) and the emission (4 per slot).
+OPS_DCT_BLOCK = 16 * 36 + 64 + 64 * 6
+OPS_EMIT_BLOCK = 64 * 4
+OPS_PACK_SLOT = 30   # scan, window shifts and atomics of one fused slot
+OPS_LOOKUP = 3       # bounds test, load, select
 
 
 def _gpu_line() -> str:
@@ -123,9 +152,18 @@ def _pad_planes(np, y, cb, cr):
     return y, np.pad(cb, c, mode="edge"), np.pad(cr, c, mode="edge")
 
 
+def _flat(out):
+    """A kernel's outputs as a flat tuple of tensors (B6b returns its 8
+    word planes as a tuple beside the lengths)."""
+    flat = []
+    for t in out:
+        flat.extend(t if isinstance(t, (tuple, list)) else (t,))
+    return flat
+
+
 def _max_abs_err(torch, got, want) -> int:
     return max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
-               for g, w in zip(got, want))
+               for g, w in zip(_flat(got), _flat(want)))
 
 
 def _event_ms(torch, fn, iters: int) -> float:
@@ -151,11 +189,17 @@ def _frames_per_s(torch, fn, n_frames: int, reps: int) -> tuple[float, float]:
     return n_frames * reps / dt, 1e3 * dt / reps
 
 
+def _bound(nbytes: float, int_ops: float) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations")."""
+    t_bytes, t_ops = nbytes / MEM_BYTES_PER_S, int_ops / INT_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def _check_twin(torch, name, kernel, twin, args) -> int:
     got, want = kernel(*args), twin(*args)
     torch.cuda.synchronize()
     err = _max_abs_err(torch, got, want)
-    print(f"{name}: outputs {tuple(got[0].shape)}, max_abs_err {err}")
+    print(f"{name}: outputs {tuple(_flat(got)[0].shape)}, max_abs_err {err}")
     if err != 0:
         raise AssertionError(f"{name}: kernel disagrees with its twin")
     return err
@@ -169,6 +213,12 @@ def _check_launches(path: str, counts: dict, must_run, must_not_run=()) -> None:
     for name in must_not_run:
         if counts[name] != 0:
             raise AssertionError(f"{path} launched {name}")
+
+
+def _check_equal(name: str, got: bytes, want: bytes) -> None:
+    print(f"{name}: {len(got)} B, CPU path {len(want)} B, equal {got == want}")
+    if got != want:
+        raise AssertionError(f"{name} differs from the CPU path")
 
 
 def main() -> int:
@@ -192,23 +242,20 @@ def main() -> int:
         cuda_vlc_levels,
         cuda_vlc_raw,
     )
-    from ec504_imageencoder_tpu_torch.ops.vlc_device import zero_runs
-    from ec504_imageencoder_tpu_torch.ops.color import rgb_to_ycbcr, subsample_420
-    from ec504_imageencoder_tpu_torch.ops.cuda_vlc import Luts
-    from ec504_imageencoder_tpu_torch.shared import (
-        MPEG1IntraEncoder,
-        decode_es_fast,
-        encode_compat_reference,
-        headers,
-        psnr,
+    from ec504_imageencoder_tpu_torch.ops.color import (
+        rgb_to_ycbcr,
         rgb_to_ycbcr_exact,
-        scale_quantization_matrix,
+        subsample_420,
     )
+    from ec504_imageencoder_tpu_torch.ops.cuda_vlc import Luts
+    from ec504_imageencoder_tpu_torch.ops.vlc_device import zero_runs
+    from ec504_imageencoder_tpu_torch.utils.tables import scale_quantization_matrix
 
     def reset_launches():
         cuda_vlc.launches = cuda_pack.launches = cuda_vlc_levels.launches = 0
         cuda_vlc_compat.launches_slots = cuda_vlc_compat.launches_fused4 = 0
         cuda_vlc_raw.launches = cuda_lut.launches = cuda_pack.launches_checked = 0
+        cuda_vlc.launches8 = cuda_pack.launches8 = 0
 
     def read_launches():
         return {"vlc_fused4": cuda_vlc.launches, "pack_fused4": cuda_pack.launches,
@@ -216,9 +263,11 @@ def main() -> int:
                 "vlc_compat_slots": cuda_vlc_compat.launches_slots,
                 "vlc_compat_fused4": cuda_vlc_compat.launches_fused4,
                 "vlc_raw": cuda_vlc_raw.launches, "lut_lookup": cuda_lut.launches,
-                "pack_fused4_checked": cuda_pack.launches_checked}
+                "pack_fused4_checked": cuda_pack.launches_checked,
+                "vlc_fused8": cuda_vlc.launches8, "pack_fused8": cuda_pack.launches8}
 
     sanitizer_kernels = ("vlc_raw", "lut_lookup", "pack_fused4_checked")
+    fuse8_kernels = ("vlc_fused8", "pack_fused8")
 
     dev = torch.device("cuda", 0)
     gpu = _gpu_line()
@@ -237,7 +286,7 @@ def main() -> int:
     for name, (secs, log) in sorted(_build.build_info.items()):
         print(f"build {name}: nvcc done after {secs:.2f} s")
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
     print(f"cold kernel build (parallel) + load: {cold_build_s:.2f} s {tag}")
 
@@ -253,6 +302,10 @@ def main() -> int:
                                   mode="edge")).to(dev)
     y, cb, cr = rgb_to_ycbcr(rgb, "studio")
     planes_hd = (y, subsample_420(cb), subsample_420(cr))
+    del rgb, y, cb, cr
+    n_rows_hd = planes_hd[0].shape[0] * planes_hd[0].shape[1] // 16
+    n_blocks_hd = n_rows_hd * (WIDTH // 16) * 6
+    plane_bytes_hd = sum(p.numel() for p in planes_hd)
     oh, ow = 1000, 1400
     noise = [rng.integers(0, 256, s, dtype=np.uint8)
              for s in ((2, oh, ow), (2, oh // 2, ow // 2), (2, oh // 2, ow // 2))]
@@ -272,6 +325,7 @@ def main() -> int:
         if err != 0:
             raise AssertionError(f"B1 disagrees with its twin on {name}")
         slots[name] = got
+    del want
 
     # ---- 3. B2 against its twin ------------------------------------------
     msb_hd = enc.resolve_slice_bytes(WIDTH // 16)
@@ -310,31 +364,23 @@ def main() -> int:
     launches = read_launches()
     _check_launches(f"q={QUALITY} path (encode + encode_from_planes + regrow encode, "
                     f"{main_s:.2f} s)", launches, ("vlc_fused4", "pack_fused4"),
-                    ("vlc_levels4", "vlc_compat_slots", "vlc_compat_fused4", *sanitizer_kernels))
+                    ("vlc_levels4", "vlc_compat_slots", "vlc_compat_fused4", *sanitizer_kernels,
+                     *fuse8_kernels))
     if regrow.max_slice_bytes <= 2560:
         raise AssertionError("the forced-regrow run did not regrow")
     print(f"regrow: 2560 B -> {regrow.max_slice_bytes} B per slice")
 
     t0 = time.perf_counter()
-    ref_rgb = MPEG1IntraEncoder(quality=QUALITY, backend="numpy").encode(frames)
-    ref_planes = MPEG1IntraEncoder(quality=QUALITY, backend="numpy").encode_from_planes(jy, jcb, jcr)
-    ref_regrow = MPEG1IntraEncoder(quality=QUALITY, max_slice_bytes=2560,
-                                   backend="numpy").encode(regrow_frames)
-    print(f"numpy reference encodes: {time.perf_counter() - t0:.2f} s on the host")
-    for name, got, want in (("encode", es_rgb, ref_rgb),
-                            ("encode_from_planes", es_planes, ref_planes),
-                            ("regrow encode", es_regrow, ref_regrow)):
-        print(f"{name}: {len(got)} B, reference {len(want)} B, equal {got == want}")
-        if got != want:
-            raise AssertionError(f"{name} differs from the numpy reference")
-
-    dec = decode_es_fast(es_rgb + headers.sequence_end())
-    if len(dec) != BATCH or any(d.shape != f.shape for d, f in zip(dec, frames)):
-        raise AssertionError("decoded stream has the wrong frame count or shape")
-    p = [psnr(f, d) for f, d in zip(frames, dec)]
-    print(f"decoded {len(dec)} frames, PSNR mean {np.mean(p):.3f} dB, min {min(p):.3f} dB")
-    if min(p) < 30.0:
-        raise AssertionError(f"PSNR {min(p):.2f} dB below 30 dB")
+    cpu_rgb = TorchMPEG1IntraEncoder(quality=QUALITY, device="cpu").encode(frames)
+    cpu_planes = TorchMPEG1IntraEncoder(quality=QUALITY, device="cpu").encode_from_planes(
+        jy, jcb, jcr)
+    cpu_regrow = TorchMPEG1IntraEncoder(quality=QUALITY, max_slice_bytes=2560,
+                                        device="cpu").encode(regrow_frames)
+    print(f"CPU path encodes, q={QUALITY}: {time.perf_counter() - t0:.2f} s on the host")
+    for name, got, want in (("encode", es_rgb, cpu_rgb),
+                            ("encode_from_planes", es_planes, cpu_planes),
+                            ("regrow encode", es_regrow, cpu_regrow)):
+        _check_equal(name, got, want)
 
     # ---- 5. steady-state times, q=50 -------------------------------------
     sl_hd = slots["16x1080p"]
@@ -347,6 +393,13 @@ def main() -> int:
             _event_ms(torch, lambda: cuda_pack.pack_fused4(*sl_hd, msb_hd // 4), 20),
             _event_ms(torch, lambda: cuda_pack.pack_fused4_plain(*sl_hd, msb_hd // 4), 3),
         ),
+    }
+    # bytes each function must move and its integer operations
+    work = {
+        "vlc_fused4": (plane_bytes_hd + 5 * 4 * sl_hd[4].numel(),
+                       n_blocks_hd * (OPS_DCT_BLOCK + OPS_EMIT_BLOCK)),
+        "pack_fused4": (5 * 4 * sl_hd[4].numel() + n_rows_hd * (msb_hd + 4),
+                        OPS_PACK_SLOT * sl_hd[4].numel()),
     }
     for name, (k_ms, p_ms) in times.items():
         print(f"{name} at 16x1080p: kernel {k_ms:.4f} ms, plain twin {p_ms:.4f} ms {tag}")
@@ -371,6 +424,7 @@ def main() -> int:
                     cuda_vlc_levels.vlc_levels4_plain, (*lv_in, luts))
         for name, lv_in in ((f"16x1080p q={HQ_QUALITY}", hq_in), (f"2x{oh}x{ow} noise q=100", noise_in))
     )
+    del noise_in
 
     # ---- 7. B4a and B4b against their twins ------------------------------
     gold_frames, gold_mpeg, gold_md5 = _golden(np)
@@ -397,36 +451,23 @@ def main() -> int:
     hq_s = time.perf_counter() - t0
     hq_launches = read_launches()
     _check_launches(f"q={HQ_QUALITY} path (encode + encode_from_planes, {hq_s:.2f} s)",
-                    hq_launches, ("vlc_levels4", "pack_fused4"), ("vlc_fused4", *sanitizer_kernels))
+                    hq_launches, ("vlc_levels4", "pack_fused4"),
+                    ("vlc_fused4", *sanitizer_kernels, *fuse8_kernels))
 
     t0 = time.perf_counter()
-    hq_ref = MPEG1IntraEncoder(quality=HQ_QUALITY, backend="numpy")
-    ref_hq_rgb = hq_ref.encode(frames)
-    ref_hq_planes = MPEG1IntraEncoder(quality=HQ_QUALITY, backend="numpy").encode_from_planes(
+    cpu_hq_rgb = TorchMPEG1IntraEncoder(quality=HQ_QUALITY, device="cpu").encode(frames)
+    cpu_hq_planes = TorchMPEG1IntraEncoder(quality=HQ_QUALITY, device="cpu").encode_from_planes(
         jy, jcb, jcr)
-    print(f"numpy reference encodes, q={HQ_QUALITY} f32 DCT: {time.perf_counter() - t0:.2f} s")
-    for name, got, want, src in (("encode", hq_rgb, ref_hq_rgb, frames),
-                                 ("encode_from_planes", hq_planes, ref_hq_planes, frames)):
-        d_got = decode_es_fast(got + headers.sequence_end())
-        if len(d_got) != BATCH or any(d.shape != f.shape for d, f in zip(d_got, src)):
-            raise AssertionError(f"q={HQ_QUALITY} {name}: wrong decoded frame count or shape")
-        p_got = [psnr(f, d) for f, d in zip(src, d_got)]
-        if got == want:
-            p_want = p_got
-        else:
-            p_want = [psnr(f, d) for f, d in
-                      zip(src, decode_es_fast(want + headers.sequence_end()))]
-        gap = max(abs(a - b) for a, b in zip(p_got, p_want))
-        print(f"q={HQ_QUALITY} {name}: {len(got)} B, reference {len(want)} B, equal "
-              f"{got == want}; PSNR mean {np.mean(p_got):.4f} dB, reference "
-              f"{np.mean(p_want):.4f} dB, largest gap {gap:.4f} dB")
-        if gap >= 0.05:
-            raise AssertionError(f"q={HQ_QUALITY} {name}: PSNR {gap:.4f} dB from the reference")
+    cpu_aan = TorchMPEG1IntraEncoder(quality=HQ_QUALITY, dct_impl="aan", device="cpu").encode(frames)
+    print(f"CPU path encodes, q={HQ_QUALITY} (f32 DCT, and aan): "
+          f"{time.perf_counter() - t0:.2f} s on the host")
+    _check_equal(f"q={HQ_QUALITY} encode", hq_rgb, cpu_hq_rgb)
+    _check_equal(f"q={HQ_QUALITY} encode_from_planes", hq_planes, cpu_hq_planes)
 
     splits = {
-        "2 x 8": b"".join(TorchMPEG1IntraEncoder(quality=HQ_QUALITY, device=dev).encode(
-            frames[i:i + 8], first_frame_index=i) for i in (0, 8)),
-        "16 x 1": b"".join(TorchMPEG1IntraEncoder(quality=HQ_QUALITY, device=dev).encode(
+        f"2 x {BATCH // 2}": b"".join(TorchMPEG1IntraEncoder(quality=HQ_QUALITY, device=dev).encode(
+            frames[i:i + BATCH // 2], first_frame_index=i) for i in (0, BATCH // 2)),
+        f"{BATCH} x 1": b"".join(TorchMPEG1IntraEncoder(quality=HQ_QUALITY, device=dev).encode(
             frames[i:i + 1], first_frame_index=i) for i in range(BATCH)),
     }
     prec, tf32 = torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32
@@ -438,14 +479,11 @@ def main() -> int:
         torch.set_float32_matmul_precision(prec)
         torch.backends.cuda.matmul.allow_tf32 = tf32
     for name, es in splits.items():
-        print(f"q={HQ_QUALITY} encode, {name}: equal to 16 at once {es == hq_rgb}")
+        print(f"q={HQ_QUALITY} encode, {name}: equal to {BATCH} at once {es == hq_rgb}")
         if es != hq_rgb:
             raise AssertionError(f"q={HQ_QUALITY} bytes differ for {name}")
     aan = TorchMPEG1IntraEncoder(quality=HQ_QUALITY, dct_impl="aan", device=dev).encode(frames)
-    ref_aan = MPEG1IntraEncoder(quality=HQ_QUALITY, dct_impl="aan", backend="numpy").encode(frames)
-    print(f"q={HQ_QUALITY} dct_impl='aan': {len(aan)} B, equal to the numpy reference {aan == ref_aan}")
-    if aan != ref_aan:
-        raise AssertionError("dct_impl='aan' at high quality differs from the numpy reference")
+    _check_equal(f"q={HQ_QUALITY} dct_impl='aan'", aan, cpu_aan)
 
     # ---- 9. compat mode --------------------------------------------------
     reset_launches()
@@ -456,7 +494,8 @@ def main() -> int:
     compat_launches = read_launches()
     _check_launches(f"compat path (30 + {len(compat_frames)} frames, {compat_s:.2f} s)",
                     compat_launches, ("vlc_compat_fused4", "pack_fused4"),
-                    ("vlc_compat_slots", "vlc_fused4", "vlc_levels4", *sanitizer_kernels))
+                    ("vlc_compat_slots", "vlc_fused4", "vlc_levels4", *sanitizer_kernels,
+                     *fuse8_kernels))
     reset_launches()
     c_debug, _ = encode_compat(gold_frames, COMPAT_QUALITY, device=dev, debug_checks=True)
     debug_launches = read_launches()
@@ -471,16 +510,24 @@ def main() -> int:
     if c_gold != gold_mpeg or c_debug != gold_mpeg or not md5_ok:
         raise AssertionError("compat output differs from the golden stream or dumps")
     t0 = time.perf_counter()
-    r_many, r_many_dumps = encode_compat_reference(compat_frames, COMPAT_QUALITY, backend="numpy")
-    print(f"numpy reference encode_compat, {len(compat_frames)} frames: "
+    cpu_many, cpu_many_dumps = encode_compat(compat_frames, COMPAT_QUALITY, device="cpu")
+    print(f"CPU path encode_compat, {len(compat_frames)} frames: "
           f"{time.perf_counter() - t0:.2f} s on the host")
-    print(f"compat, {len(compat_frames)} frames: {len(c_many)} B, reference {len(r_many)} B, "
-          f"equal {c_many == r_many}, dumps equal {c_many_dumps == r_many_dumps}")
-    if c_many != r_many or c_many_dumps != r_many_dumps:
-        raise AssertionError("compat output differs from the numpy reference")
+    _check_equal(f"compat, {len(compat_frames)} frames", c_many, cpu_many)
+    if c_many_dumps != cpu_many_dumps:
+        raise AssertionError("compat .bit dumps differ from the CPU path")
+    del cpu_many_dumps, c_many_dumps
 
     # ---- 10. steady-state times, q=85 and compat -------------------------
     big = compat_planes[f"{len(compat_frames)} frames"]
+    n_compat_blocks = len(compat_frames) * 6 * 54
+    work["vlc_levels4"] = (hq_in[0].numel() * 4 + hq_in[1].numel() * 4 + 5 * 4 * sl_hd[4].numel(),
+                           n_blocks_hd * OPS_EMIT_BLOCK)
+    # compat reads the 96 x 144 crop of each plane: 64 B per block
+    work["vlc_compat_fused4"] = (n_compat_blocks * (64 + 5 * 4 * 16),
+                                 n_compat_blocks * (OPS_DCT_BLOCK + OPS_EMIT_BLOCK))
+    work["vlc_compat_slots"] = (n_compat_blocks * (64 + 2 * 4 * 64),
+                                n_compat_blocks * (OPS_DCT_BLOCK + OPS_EMIT_BLOCK))
     for name, kernel, twin, args in (
         ("vlc_levels4", cuda_vlc_levels.vlc_levels4, cuda_vlc_levels.vlc_levels4_plain,
          (*hq_in, luts)),
@@ -504,6 +551,7 @@ def main() -> int:
     ):
         fps, ms = _frames_per_s(torch, fn, n, 3)
         print(f"{label}: {fps:.2f} frames/s ({ms:.2f} ms per call) {tag}")
+    del big, compat_planes
 
     # ---- 11. B6a against its twin ----------------------------------------
     b6a_err = max(
@@ -530,6 +578,7 @@ def main() -> int:
                            ("10M random indices, AC table", (rand_idx, ac_tab)),
                            ("10M random indices, DC table", (rand_idx, dc_tab)))
     )
+    del rand_idx
 
     # ---- 13. B2's checked form -------------------------------------------
     mw_hd = msb_hd // 4
@@ -577,8 +626,8 @@ def main() -> int:
 
     # ---- 14. the sanitizer: debug_checks=True ----------------------------
     debug_counts = {}
-    for q, must, ref_pair in ((QUALITY, "vlc_raw", (ref_rgb, ref_planes)),
-                              (HQ_QUALITY, "lut_lookup", (ref_hq_rgb, ref_hq_planes))):
+    for q, must, cpu_pair in ((QUALITY, "vlc_raw", (cpu_rgb, cpu_planes)),
+                              (HQ_QUALITY, "lut_lookup", (cpu_hq_rgb, cpu_hq_planes))):
         reset_launches()
         t0 = time.perf_counter()
         dbg = TorchMPEG1IntraEncoder(quality=q, debug_checks=True, device=dev)
@@ -589,13 +638,9 @@ def main() -> int:
         other = "lut_lookup" if must == "vlc_raw" else "vlc_raw"
         _check_launches(f"q={q} debug_checks path ({dbg.dct_impl}; encode + encode_from_planes, "
                         f"{debug_s:.2f} s)", debug_counts[q], (must, "pack_fused4_checked"),
-                        ("vlc_fused4", "vlc_levels4", "pack_fused4", other))
-        for name, got, want in (("encode", d_rgb, ref_pair[0]),
-                                ("encode_from_planes", d_planes, ref_pair[1])):
-            print(f"q={q} debug_checks {name}: {len(got)} B, numpy reference {len(want)} B, "
-                  f"equal {got == want}")
-            if got != want:
-                raise AssertionError(f"q={q} debug_checks {name} differs from the numpy reference")
+                        ("vlc_fused4", "vlc_levels4", "pack_fused4", other, *fuse8_kernels))
+        _check_equal(f"q={q} debug_checks encode", d_rgb, cpu_pair[0])
+        _check_equal(f"q={q} debug_checks encode_from_planes", d_planes, cpu_pair[1])
     debug_counts["sum"] = {k: debug_counts[QUALITY][k] + debug_counts[HQ_QUALITY][k]
                            for k in debug_counts[QUALITY]}
 
@@ -622,6 +667,11 @@ def main() -> int:
 
     # ---- 15. steady-state times, sanitizer -------------------------------
     torch.cuda.empty_cache()
+    work["vlc_raw"] = (plane_bytes_hd + n_blocks_hd * 2 * 4 * 64 + n_rows_hd * 4,
+                       n_blocks_hd * (OPS_DCT_BLOCK + OPS_EMIT_BLOCK))
+    work["lut_lookup"] = (8 * ranks.numel() + ac_tab.numel() * 4, OPS_LOOKUP * ranks.numel())
+    work["pack_fused4_checked"] = (work["pack_fused4"][0] + n_rows_hd * 4,
+                                   OPS_PACK_SLOT * sl_hd[4].numel())
     for name, kernel, twin, args, where in (
         ("vlc_raw", cuda_vlc_raw.vlc_raw, cuda_vlc_raw.vlc_raw_plain,
          (*planes_hd, core.qw, luts), f"16x1080p q={QUALITY}"),
@@ -635,6 +685,10 @@ def main() -> int:
                        _event_ms(torch, lambda: twin(*args), 3))
         print(f"{name} at {where}: kernel {times[name][0]:.4f} ms, "
               f"plain twin {times[name][1]:.4f} ms {tag}")
+    # one PyTorch call computing the same function: B5's lookup is a gather
+    # (every AC rank lies inside the table)
+    library = {"lut_lookup": _event_ms(torch, lambda: ac_tab[ranks], 20)}
+    print(f"lut_lookup's library call (ac_tab[ranks]): {library['lut_lookup']:.4f} ms {tag}")
     for q in (QUALITY, HQ_QUALITY):
         dbg = TorchMPEG1IntraEncoder(quality=q, debug_checks=True, device=dev)
         for label, fn in (("encode", lambda: dbg.encode(frames)),
@@ -642,6 +696,92 @@ def main() -> int:
             fps, ms = _frames_per_s(torch, fn, BATCH, 3)
             print(f"debug_checks {label} 16x1080p q={q}: {fps:.2f} frames/s "
                   f"({ms:.2f} ms per batch) {tag}")
+    del hq_in, hq_levels, ranks, dbg
+
+    # ---- 16. B6b and B6c against their twins -----------------------------
+    torch.cuda.empty_cache()
+    b6b_err = 0
+    slots8 = {}
+    for name, planes in (("16x1080p", planes_hd), (f"2x{oh}x{ow} noise", planes_odd)):
+        got = cuda_vlc.vlc_fused8(*planes, core.qw, luts)
+        want = cuda_vlc.vlc_fused8_plain(*planes, core.qw, luts)
+        torch.cuda.synchronize()
+        err = _max_abs_err(torch, got, want)
+        b6b_err = max(b6b_err, err)
+        print(f"B6b vlc_fused8 vs twin, {name}: slots {tuple(got[1].shape)}, "
+              f"max flen {int(got[1].max())}, max_abs_err {err}")
+        if err != 0:
+            raise AssertionError(f"B6b disagrees with its twin on {name}")
+        slots8[name] = got
+    del want
+    b6c_err = 0
+    for name, key, mw, must_overflow in (
+        ("16x1080p, auto buffer (shared memory)", "16x1080p", msb_hd // 4, False),
+        ("noise, 2560 B buffer (overflows)", f"2x{oh}x{ow} noise", 640, True),
+        ("noise, 342528 B buffer (global memory)", f"2x{oh}x{ow} noise", 342528 // 4, False),
+    ):
+        got = cuda_pack.pack_fused8(*slots8[key], mw, bit_offset=38)
+        want = cuda_pack.pack_fused8_plain(*slots8[key], mw, bit_offset=38)
+        via4 = cuda_pack.pack_fused4(*slots[key], mw, bit_offset=38)  # B1 + B2: the same stream
+        torch.cuda.synchronize()
+        err = _max_abs_err(torch, got, want)
+        b6c_err = max(b6c_err, err)
+        over = int((got[1] > 32 * mw).sum())
+        same4 = _max_abs_err(torch, got, via4) == 0
+        print(f"B6c pack_fused8 vs twin, {name}: {got[0].shape[0]} slices, "
+              f"max nbits {int(got[1].max())}, {over} over the buffer, max_abs_err {err}, "
+              f"equal to B2 on the 4:1 slots {same4}")
+        if err != 0 or not same4:
+            raise AssertionError(f"B6c disagrees with its twin or B2 on {name}")
+        if must_overflow and over == 0:
+            raise AssertionError(f"{name}: no slice overflowed")
+    del got, want, via4
+
+    # ---- 17. the 8:1-fusion path -----------------------------------------
+    reset_launches()
+    t0 = time.perf_counter()
+    f8 = TorchMPEG1IntraEncoder(quality=QUALITY, fuse=8, device=dev)
+    f8_rgb = f8.encode(frames)
+    f8_planes = TorchMPEG1IntraEncoder(quality=QUALITY, fuse=8, device=dev).encode_from_planes(
+        jy, jcb, jcr)
+    regrow8 = TorchMPEG1IntraEncoder(quality=QUALITY, fuse=8, max_slice_bytes=2560, device=dev)
+    f8_regrow = regrow8.encode(regrow_frames)
+    f8_s = time.perf_counter() - t0
+    f8_launches = read_launches()
+    _check_launches(f"q={QUALITY} fuse=8 path (encode + encode_from_planes + regrow encode, "
+                    f"{f8_s:.2f} s)", f8_launches, fuse8_kernels,
+                    ("vlc_fused4", "pack_fused4", "vlc_levels4", "vlc_compat_slots",
+                     "vlc_compat_fused4", *sanitizer_kernels))
+    if regrow8.max_slice_bytes <= 2560:
+        raise AssertionError("the fuse=8 forced-regrow run did not regrow")
+    print(f"fuse=8 regrow: 2560 B -> {regrow8.max_slice_bytes} B per slice")
+    for name, got, want in (("fuse=8 encode", f8_rgb, cpu_rgb),
+                            ("fuse=8 encode_from_planes", f8_planes, cpu_planes),
+                            ("fuse=8 regrow encode", f8_regrow, cpu_regrow)):
+        _check_equal(name, got, want)
+
+    # ---- 18. steady-state times, fuse=8 ----------------------------------
+    w8_hd, fl8_hd = slots8["16x1080p"]
+    times["vlc_fused8"] = (
+        _event_ms(torch, lambda: cuda_vlc.vlc_fused8(*planes_hd, core.qw, luts), 20),
+        _event_ms(torch, lambda: cuda_vlc.vlc_fused8_plain(*planes_hd, core.qw, luts), 3),
+    )
+    times["pack_fused8"] = (
+        _event_ms(torch, lambda: cuda_pack.pack_fused8(w8_hd, fl8_hd, mw_hd), 20),
+        _event_ms(torch, lambda: cuda_pack.pack_fused8_plain(w8_hd, fl8_hd, mw_hd), 3),
+    )
+    work["vlc_fused8"] = (plane_bytes_hd + 9 * 4 * fl8_hd.numel(),
+                          n_blocks_hd * (OPS_DCT_BLOCK + OPS_EMIT_BLOCK))
+    work["pack_fused8"] = (9 * 4 * fl8_hd.numel() + n_rows_hd * (msb_hd + 4),
+                           OPS_PACK_SLOT * fl8_hd.numel())
+    for name in fuse8_kernels:
+        print(f"{name} at 16x1080p: kernel {times[name][0]:.4f} ms, "
+              f"plain twin {times[name][1]:.4f} ms {tag}")
+    for label, fn in (("encode", lambda: f8.encode(frames)),
+                      ("encode_from_planes", lambda: f8.encode_from_planes(jy, jcb, jcr))):
+        fps, ms = _frames_per_s(torch, fn, BATCH, 5)
+        print(f"fuse=8 {label} 16x1080p q={QUALITY}: {fps:.2f} frames/s "
+              f"({ms:.2f} ms per batch) {tag}")
 
     src = "ec504_imageencoder_tpu_torch/csrc/"
     rows = [
@@ -661,13 +801,23 @@ def main() -> int:
          debug_counts[HQ_QUALITY], b5_err),
         ("pack_fused4_checked", "pack_fused4.cu", "ec504_imageencoder_tpu/ops/pallas_pack.py:763",
          debug_counts["sum"], b2c_err),
+        ("vlc_fused8", "vlc_fused4.cu", "ec504_imageencoder_tpu/ops/pallas_vlc.py:664",
+         f8_launches, b6b_err),
+        ("pack_fused8", "pack_fused4.cu", "ec504_imageencoder_tpu/ops/pallas_pack.py:980",
+         f8_launches, b6c_err),
     ]
-    kernels = [
-        {"name": name, "route": "cuda", "source": src + cu, "replaces": replaces,
-         "launches": counts[name], "max_abs_err": err,
-         "ms": times[name][0], "plain_ms": times[name][1]}
-        for name, cu, replaces, counts, err in rows
-    ]
+    kernels = []
+    for name, cu, replaces, counts, err in rows:
+        bound_ms, bound_by = _bound(*work[name])
+        kernels.append({
+            "name": name, "route": "cuda", "source": src + cu, "replaces": replaces,
+            "launches": counts[name], "max_abs_err": err,
+            "ms": times[name][0], "plain_ms": times[name][1],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library.get(name),
+        })
+        print(f"{name}: {times[name][0]:.4f} ms against a bound of {bound_ms:.4f} ms "
+              f"({bound_by}; {work[name][0] / 1e6:.1f} MB, {work[name][1] / 1e9:.3f} G int ops) "
+              f"{tag}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
-// pack_fused4: 4:1-fused VLC slots -> big-endian slice bytes + bit counts.
+// pack_fused4: 4:1-fused VLC slots -> big-endian slice bytes + bit counts
+// (kernel B2), and the same for 8:1-fused slots (kernel B6c).
 //
-// Replaces the Pallas kernel ec504_imageencoder_tpu/ops/pallas_pack.py
+// B2 replaces the Pallas kernel ec504_imageencoder_tpu/ops/pallas_pack.py
 // `_fused4_kernel` as launched by `pack_words_fused4_core(..., emit_be=True)`,
 // and the `words_be_to_bytes` bitcast behind it.  Each fused slot holds a
 // right-aligned value of <= 128 bits (four 32-bit words, most significant
@@ -9,23 +10,31 @@
 // words.  Words past max_words are dropped, but nbits is the true total
 // (bit_offset included), so the host can regrow the buffer exactly.
 //
-// What bounds it on the H100: bytes.  Per slice it reads 20 B per fused
-// slot (230 KB at 1080p) and writes the slice buffer once; the scan and the
-// placement are a few dozen integer ops per slot.
+// B6c (kWords = 8, entry point pack_fused8_launch) replaces `_fused8_kernel`
+// (`pack_words_fused8_core`, the reference's EC504_FUSE=8 route) and its
+// bitcast: slots of <= 256 bits (eight words), each spanning at most 9
+// words, placed from a 288-bit window.  It has none of the TPU kernel's
+// limits on max_words (a multiple of 128, at least 384): those were its
+// tiling.
+//
+// What bounds it on the H100: bytes.  Per slice it reads 4 (kWords + 1) B
+// per fused slot (230 KB at 1080p for either fusion) and writes the slice
+// buffer once; the scan and the placement are a few dozen integer ops per
+// slot.
 //
 // Design: one CUDA block per slice.  The block walks the slots in chunks of
 // its thread count; a warp-shuffle exclusive scan of the lengths, with the
 // running total carried across chunks in shared memory, gives each slot its
-// bit offset.  Each slot ORs its (up to 5) shifted words into a zeroed
-// slice buffer with atomicOr: the contributions are bit-disjoint and OR is
-// order-free, so the result is deterministic.  The buffer lives in dynamic
-// shared memory when it fits the card's opt-in limit (227 KB on the H100:
-// every auto-sized and worst-case 1080p buffer); a larger regrown buffer
-// (e.g. 342,528 B at width 4095) is ORed in place in the zeroed output row
-// in global memory instead.  A final coalesced pass byte-swaps the words
-// into stream byte order.
+// bit offset.  Each slot ORs its (up to kWords + 1) shifted words into a
+// zeroed slice buffer with atomicOr: the contributions are bit-disjoint and
+// OR is order-free, so the result is deterministic.  The buffer lives in
+// dynamic shared memory when it fits the card's opt-in limit (227 KB on the
+// H100: every auto-sized and worst-case 1080p buffer); a larger regrown
+// buffer (e.g. 342,528 B at width 4095) is ORed in place in the zeroed
+// output row in global memory instead.  A final coalesced pass byte-swaps
+// the words into stream byte order.
 //
-// The checked form (kChecks, entry point with a non-null `viol`) replaces
+// B2's checked form (kChecks, entry point with a non-null `viol`) replaces
 // the debug outputs of `_fused4_kernel` (`pack_words_fused4_core(...,
 // debug=True)`): per slice it counts fused lengths outside [0, 128] and
 // placements whose bits overlap bits already placed.  The TPU finds an
@@ -55,27 +64,34 @@ __device__ __forceinline__ int warp_inclusive_scan(int v, int lane) {
   return v;
 }
 
-// word j of the value shifted to the top of a 160-bit window by
-// sig = 32 q + r bits, over the words u = [0, v0, v1, v2, v3]
-__device__ __forceinline__ uint32_t window_word(const uint32_t u[5], int j, int q, int r) {
+// The word planes of (n, kf) fused slots: v[p] holds word p of every
+// slot, most significant first.
+template <int kWords>
+struct Slots {
+  const int32_t* v[kWords];
+};
+
+// word j of the value shifted to the top of a 32 (kWords + 1)-bit window by
+// sig = 32 q + r bits, over the words u = [0, v0, ..., v_{kWords-1}]
+template <int kWords>
+__device__ __forceinline__ uint32_t window_word(const uint32_t u[kWords + 1], int j, int q,
+                                                int r) {
   const int i = j + q;
-  if (i > 4) return 0u;
+  if (i > kWords) return 0u;
   uint32_t hi = 0u, lo = 0u;
 #pragma unroll
-  for (int t = 0; t < 5; ++t) {
+  for (int t = 0; t <= kWords; ++t) {
     if (t == i) hi = u[t];
     if (t == i + 1) lo = u[t];
   }
   return r ? (hi << r) | (lo >> (32 - r)) : hi;
 }
 
-template <bool kShared, bool kChecks>
+template <int kWords, bool kShared, bool kChecks>
 __global__ void __launch_bounds__(kThreads)
-pack_fused4_kernel(const int32_t* __restrict__ v0, const int32_t* __restrict__ v1,
-                   const int32_t* __restrict__ v2, const int32_t* __restrict__ v3,
-                   const int32_t* __restrict__ flens, int kf, int max_words,
-                   int bit_offset, uint32_t* __restrict__ seg_words,
-                   int32_t* __restrict__ nbits, int32_t* __restrict__ viol) {
+pack_fused_kernel(const Slots<kWords> v, const int32_t* __restrict__ flens, int kf,
+                  int max_words, int bit_offset, uint32_t* __restrict__ seg_words,
+                  int32_t* __restrict__ nbits, int32_t* __restrict__ viol) {
   extern __shared__ uint32_t s_buf[];
   __shared__ int s_warp[kWarps];
   __shared__ int s_carry;
@@ -107,16 +123,18 @@ pack_fused4_kernel(const int32_t* __restrict__ v0, const int32_t* __restrict__ v
     __syncthreads();
     const int off = s_carry + (warp ? s_warp[warp - 1] : 0) + incl - len;
     const int total = s_warp[kWarps - 1];
-    if (kChecks) hits += len < 0 || len > 128;
-    const int sig = 160 - (off & 31) - len;
+    if (kChecks) hits += len < 0 || len > 32 * kWords;
+    const int sig = 32 * (kWords + 1) - (off & 31) - len;
     if (len > 0 && (!kChecks || sig >= 0)) {
-      const uint32_t u[5] = {0u, (uint32_t)v0[base + i], (uint32_t)v1[base + i],
-                             (uint32_t)v2[base + i], (uint32_t)v3[base + i]};
+      uint32_t u[kWords + 1];
+      u[0] = 0u;
+#pragma unroll
+      for (int p = 0; p < kWords; ++p) u[p + 1] = (uint32_t)v.v[p][base + i];
       const int word = off >> 5;
       const int q = sig >> 5, r = sig & 31;
 #pragma unroll
-      for (int j = 0; j < 5; ++j) {
-        const uint32_t w = window_word(u, j, q, r);
+      for (int j = 0; j <= kWords; ++j) {
+        const uint32_t w = window_word<kWords>(u, j, q, r);
         if constexpr (kChecks) {
           if (w && word + j >= 0 && word + j < max_words)
             hits += (atomicOr(&buf[word + j], w) & w) != 0u;
@@ -140,31 +158,27 @@ pack_fused4_kernel(const int32_t* __restrict__ v0, const int32_t* __restrict__ v
   for (int i = tid; i < max_words; i += kThreads) out[i] = __byte_perm(buf[i], 0u, 0x0123);
 }
 
-template <bool kShared, bool kChecks>
-cudaError_t launch(const void* v0, const void* v1, const void* v2, const void* v3,
-                   const void* flens, int n, int kf, int max_words, int bit_offset, void* seg,
-                   void* nbits, void* viol, size_t bytes, cudaStream_t s) {
+template <int kWords, bool kShared, bool kChecks>
+cudaError_t launch(const Slots<kWords>& v, const void* flens, int n, int kf, int max_words,
+                   int bit_offset, void* seg, void* nbits, void* viol, size_t bytes,
+                   cudaStream_t s) {
   if constexpr (kShared) {
     const cudaError_t err = cudaFuncSetAttribute(
-        pack_fused4_kernel<kShared, kChecks>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
+        pack_fused_kernel<kWords, kShared, kChecks>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return err;
   }
-  pack_fused4_kernel<kShared, kChecks><<<n, kThreads, kShared ? bytes : 0, s>>>(
-      (const int32_t*)v0, (const int32_t*)v1, (const int32_t*)v2, (const int32_t*)v3,
-      (const int32_t*)flens, kf, max_words, bit_offset, (uint32_t*)seg, (int32_t*)nbits,
+  pack_fused_kernel<kWords, kShared, kChecks><<<n, kThreads, kShared ? bytes : 0, s>>>(
+      v, (const int32_t*)flens, kf, max_words, bit_offset, (uint32_t*)seg, (int32_t*)nbits,
       (int32_t*)viol);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// viol == nullptr: the production kernel; otherwise the checked form,
-// which also writes the (n,) int32 violation counts to viol.
-extern "C" int pack_fused4_launch(const void* v0, const void* v1, const void* v2,
-                                  const void* v3, const void* flens, int n, int kf,
-                                  int max_words, int bit_offset, void* seg,
-                                  void* nbits, void* viol, int device, void* stream) {
+// The buffer regime (shared or global memory) and the form (checked when
+// viol is non-null; B2 only) of one launch.
+template <int kWords>
+int dispatch(const Slots<kWords>& v, const void* flens, int n, int kf, int max_words,
+             int bit_offset, void* seg, void* nbits, void* viol, int device, void* stream) {
   if (n < 0 || kf < 0 || max_words <= 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -177,17 +191,45 @@ extern "C" int pack_fused4_launch(const void* v0, const void* v1, const void* v2
   const bool shared = bytes + static_bytes <= (size_t)optin;
   cudaStream_t s = (cudaStream_t)stream;
   if (viol == nullptr) {
-    err = shared ? launch<true, false>(v0, v1, v2, v3, flens, n, kf, max_words, bit_offset,
-                                       seg, nbits, viol, bytes, s)
-                 : launch<false, false>(v0, v1, v2, v3, flens, n, kf, max_words, bit_offset,
-                                        seg, nbits, viol, bytes, s);
+    err = shared ? launch<kWords, true, false>(v, flens, n, kf, max_words, bit_offset, seg,
+                                               nbits, viol, bytes, s)
+                 : launch<kWords, false, false>(v, flens, n, kf, max_words, bit_offset, seg,
+                                                nbits, viol, bytes, s);
+  } else if constexpr (kWords == 4) {
+    err = shared ? launch<kWords, true, true>(v, flens, n, kf, max_words, bit_offset, seg,
+                                              nbits, viol, bytes, s)
+                 : launch<kWords, false, true>(v, flens, n, kf, max_words, bit_offset, seg,
+                                               nbits, viol, bytes, s);
   } else {
-    err = shared ? launch<true, true>(v0, v1, v2, v3, flens, n, kf, max_words, bit_offset,
-                                      seg, nbits, viol, bytes, s)
-                 : launch<false, true>(v0, v1, v2, v3, flens, n, kf, max_words, bit_offset,
-                                       seg, nbits, viol, bytes, s);
+    err = cudaErrorInvalidValue;
   }
   return (int)err;
+}
+
+}  // namespace
+
+// B2.  viol == nullptr: the production kernel; otherwise the checked form,
+// which also writes the (n,) int32 violation counts to viol.
+extern "C" int pack_fused4_launch(const void* v0, const void* v1, const void* v2,
+                                  const void* v3, const void* flens, int n, int kf,
+                                  int max_words, int bit_offset, void* seg,
+                                  void* nbits, void* viol, int device, void* stream) {
+  const Slots<4> v{{(const int32_t*)v0, (const int32_t*)v1, (const int32_t*)v2,
+                    (const int32_t*)v3}};
+  return dispatch<4>(v, flens, n, kf, max_words, bit_offset, seg, nbits, viol, device, stream);
+}
+
+// B6c: 8-word slots, w0 the most significant word plane.
+extern "C" int pack_fused8_launch(const void* w0, const void* w1, const void* w2,
+                                  const void* w3, const void* w4, const void* w5,
+                                  const void* w6, const void* w7, const void* flens, int n,
+                                  int kf, int max_words, int bit_offset, void* seg,
+                                  void* nbits, int device, void* stream) {
+  const Slots<8> v{{(const int32_t*)w0, (const int32_t*)w1, (const int32_t*)w2,
+                    (const int32_t*)w3, (const int32_t*)w4, (const int32_t*)w5,
+                    (const int32_t*)w6, (const int32_t*)w7}};
+  return dispatch<8>(v, flens, n, kf, max_words, bit_offset, seg, nbits, nullptr, device,
+                     stream);
 }
 
 extern "C" const char* pack_fused4_strerror(int err) {

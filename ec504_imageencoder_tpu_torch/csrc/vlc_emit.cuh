@@ -1,12 +1,12 @@
 // Device code shared by the VLC kernels (vlc_fused4.cu, vlc_levels4.cu,
-// vlc_compat.cu, vlc_raw.cu): the reference's integer AAN forward DCT, the
-// VLC table layout in shared memory, the correct-mode DC and AC slot
-// emission, the exact 4:1 slot fusion with its stream-order store, and the
-// unfused (raw) slot store.
+// vlc_compat.cu, vlc_raw.cu): the reference's integer AAN forward DCT,
+// the VLC table layout in shared memory, the correct-mode DC and AC slot
+// emission, the exact 4:1 and 8:1 slot fusions with their stream-order
+// stores, and the unfused (raw) slot store.
 //
 // Every function mirrors a function of the PyTorch twins (ops/dct.py,
-// ops/vlc_device.py, ops/bitpack.py::fuse4), which mirror the reference
-// package; the kernels are held against the twins exactly.
+// ops/vlc_device.py, ops/bitpack.py::fuse4 and fuse8), which mirror the
+// reference package; the kernels are held against the twins exactly.
 
 #pragma once
 
@@ -159,57 +159,129 @@ struct FusedOut {
 };
 
 // Exact 4:1 fusion (ops/bitpack.py::fuse4) of four slots of <= 30 bits:
-// the codes concatenated, <= 120 bits, as four 32-bit words (most
-// significant first), stored at fused slot o.
-__device__ __forceinline__ void store_fused4(const uint32_t c[4], const int l[4],
-                                             const FusedOut& out, size_t o) {
+// the codes concatenated, <= 120 bits, as four 32-bit words v (most
+// significant first).  Returns the length.
+__device__ __forceinline__ int fuse4_value(const uint32_t c[4], const int l[4], uint32_t v[4]) {
   const uint64_t a = ((uint64_t)c[0] << l[1]) | c[1];
   const uint64_t bb = ((uint64_t)c[2] << l[3]) | c[3];
   const int lb = l[2] + l[3];  // <= 60
   const uint64_t vlo = (a << lb) | bb;
   const uint64_t vhi = lb > 0 ? a >> (64 - lb) : 0;
-  out.v0[o] = (int32_t)(uint32_t)(vhi >> 32);
-  out.v1[o] = (int32_t)(uint32_t)vhi;
-  out.v2[o] = (int32_t)(uint32_t)(vlo >> 32);
-  out.v3[o] = (int32_t)(uint32_t)vlo;
-  out.len[o] = l[0] + l[1] + l[2] + l[3];
+  v[0] = (uint32_t)(vhi >> 32);
+  v[1] = (uint32_t)vhi;
+  v[2] = (uint32_t)(vlo >> 32);
+  v[3] = (uint32_t)vlo;
+  return l[0] + l[1] + l[2] + l[3];
+}
+
+// The fused value of four slots stored at fused slot o.
+__device__ __forceinline__ void store_fused4(const uint32_t c[4], const int l[4],
+                                             const FusedOut& out, size_t o) {
+  uint32_t v[4];
+  out.len[o] = fuse4_value(c, l, v);
+  out.v0[o] = (int32_t)v[0];
+  out.v1[o] = (int32_t)v[1];
+  out.v2[o] = (int32_t)v[2];
+  out.v3[o] = (int32_t)v[3];
+}
+
+// Slots 4j .. 4j+3 of one correct-mode block, emitted in order into c and
+// l (`run` carries the zero run across calls).  `levels(j, lv)` gives
+// their zigzag levels (slot 0's value is not read: code0/len0 are the DC
+// slot).  EOB '10' folds into slot 63.
+template <class Levels>
+__device__ __forceinline__ void emit_four_slots(const Levels& levels, int j, uint32_t code0,
+                                                int len0, const uint32_t* s_ac, int& run,
+                                                uint32_t c[4], int l[4]) {
+  int lv[4];
+  levels(j, lv);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int k = 4 * j + i;
+    if (k == 0) {
+      c[i] = code0;
+      l[i] = len0;
+      continue;
+    }
+    c[i] = emit_ac(lv[i], run, s_ac, l[i]);
+    if (k == 63) {  // end of block '10'
+      c[i] = (c[i] << 2) | 2u;
+      l[i] += 2;
+    }
+  }
 }
 
 // The 64 slots of one correct-mode block, 4:1-fused, stored at fused
-// slots obase .. obase + 15.  `levels(j, lv)` gives the zigzag levels of
-// slots 4j .. 4j+3 (slot 0's value is not read: code0/len0 are the DC
-// slot).  EOB '10' folds into slot 63.
+// slots obase .. obase + 15 (levels, code0 and len0 as for
+// emit_four_slots).
 template <class Levels>
 __device__ __forceinline__ void emit_block_fused4(const Levels& levels, uint32_t code0,
                                                   int len0, const uint32_t* s_ac,
                                                   const FusedOut& out, size_t obase) {
   int run = 0;
   for (int j = 0; j < 16; ++j) {
-    int lv[4];
-    levels(j, lv);
     uint32_t c[4];
     int l[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int k = 4 * j + i;
-      if (k == 0) {
-        c[i] = code0;
-        l[i] = len0;
-        continue;
-      }
-      c[i] = emit_ac(lv[i], run, s_ac, l[i]);
-      if (k == 63) {  // end of block '10'
-        c[i] = (c[i] << 2) | 2u;
-        l[i] += 2;
-      }
-    }
+    emit_four_slots(levels, j, code0, len0, s_ac, run, c, l);
     store_fused4(c, l, out, obase + j);
+  }
+}
+
+// Exact 8:1 fusion (ops/bitpack.py::fuse8) of two 4:1-fused values: a
+// (<= 128 bits) shifted above b (lb <= 128 bits), as eight 32-bit words w
+// (most significant first).  a moves up by lb = 32 q + r bits over the
+// words [0, a0, a1, a2, a3]; the r == 0 case needs its own branch (a
+// shift by 32 is undefined).
+__device__ __forceinline__ void fuse8_value(const uint32_t a[4], const uint32_t b[4], int lb,
+                                            uint32_t w[8]) {
+  const int q = lb >> 5, r = lb & 31;
+  uint32_t f[5];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    const uint32_t hi = i > 0 ? a[i - 1] : 0u;
+    const uint32_t lo = i < 4 ? a[i] : 0u;
+    f[i] = r ? (hi << r) | (lo >> (32 - r)) : hi;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    uint32_t acc = 0u;
+#pragma unroll
+    for (int qq = 0; qq < 5; ++qq) {
+      const int k = j + qq - 3;
+      if (k >= 0 && k <= 4 && q == qq) acc = f[k];
+    }
+    w[j] = j >= 4 ? acc | b[j - 4] : acc;
+  }
+}
+
+// The 64 slots of one correct-mode block, 8:1-fused: fused slot k (0..7)
+// of the block holds slots 8k .. 8k+7; its word p goes to
+// out[p * plane + obase + k] (p = 0..7, most significant first) and its
+// length to out[8 * plane + obase + k].  levels, code0 and len0 as for
+// emit_four_slots.
+template <class Levels>
+__device__ __forceinline__ void emit_block_fused8(const Levels& levels, uint32_t code0,
+                                                  int len0, const uint32_t* s_ac,
+                                                  int32_t* out, size_t plane, size_t obase) {
+  int run = 0;
+  for (int k = 0; k < 8; ++k) {
+    uint32_t c[4], a[4], b[4], w[8];
+    int l[4];
+    emit_four_slots(levels, 2 * k, code0, len0, s_ac, run, c, l);
+    const int la = fuse4_value(c, l, a);
+    emit_four_slots(levels, 2 * k + 1, code0, len0, s_ac, run, c, l);
+    const int lb = fuse4_value(c, l, b);
+    fuse8_value(a, b, lb, w);
+    int32_t* o = out + obase + k;
+#pragma unroll
+    for (int p = 0; p < 8; ++p) o[p * plane] = (int32_t)w[p];
+    o[8 * plane] = la + lb;
   }
 }
 
 // The 64 slots of one correct-mode block, unfused: slot k's code and
 // length go to codes[k * stride] and lens[k * stride].  `levels`, code0
-// and len0 as for emit_block_fused4.  The block loop stays rolled and the
+// and len0 as for emit_four_slots.  The block loop stays rolled and the
 // pointers advance, so the 64 stores need no 64 addresses in registers.
 template <class Levels>
 __device__ __forceinline__ void emit_block_raw(const Levels& levels, uint32_t code0, int len0,

@@ -1,9 +1,10 @@
 """Compat-mode encoder on PyTorch: the reference C encoder's bitstream, bug
 for bug.
 
-The port of `ec504_imageencoder_tpu.models.encoder.encode_compat` (the C
-project's `mpeg_encode_procedure` minus file I/O): the host f64 colour of
-the reference (`rgb_to_ycbcr_exact`, which the `.bit` dumps also need),
+The port of the reference's `models/encoder.py::encode_compat` (the C
+project's `mpeg_encode_procedure` minus file I/O), with its own copies of
+the reference's crop and slice constants and `_validate_frames`: the
+host f64 colour (`rgb_to_ycbcr_exact`, which the `.bit` dumps also need),
 the full-resolution planes to the device, kernel B4b (crop blockize, AAN
 DCT, truncating quantization, zigzag, compat emission, 4:1 fusion),
 kernel B2 (38 bits in, 12,288 B per slice: the worst-case compat slice is
@@ -21,19 +22,39 @@ from torch import nn
 from ec504_imageencoder_tpu_torch.device import resolve_device
 from ec504_imageencoder_tpu_torch.models.mpeg1 import SLICE_HEADER_BITS
 from ec504_imageencoder_tpu_torch.ops.bitpack import fuse4, or_slice_headers
+from ec504_imageencoder_tpu_torch.ops.color import rgb_to_ycbcr_exact
 from ec504_imageencoder_tpu_torch.ops.cuda_pack import pack_fused4
 from ec504_imageencoder_tpu_torch.ops.cuda_vlc import Luts, to_i32_bits
-from ec504_imageencoder_tpu_torch.ops.cuda_vlc_compat import vlc_compat_fused4, vlc_compat_slots
-from ec504_imageencoder_tpu_torch.ops.vlc_device import slot_violations
-from ec504_imageencoder_tpu_torch.shared import (
-    MAX_SLICE_BYTES_COMPAT,
+from ec504_imageencoder_tpu_torch.ops.cuda_vlc_compat import (  # noqa: F401 (re-exported)
+    CROP_H,
+    CROP_W,
+    N_MBS,
     N_SLICES,
-    QUANT_SCALE,
-    _validate_frames,
-    headers,
-    rgb_to_ycbcr_exact,
-    scale_quantization_matrix,
+    vlc_compat_fused4,
+    vlc_compat_slots,
 )
+from ec504_imageencoder_tpu_torch.ops.vlc_device import slot_violations
+from ec504_imageencoder_tpu_torch.syntax import headers
+from ec504_imageencoder_tpu_torch.utils.tables import scale_quantization_matrix
+
+QUANT_SCALE = 1
+
+# the worst-case compat slice, 38 header bits + 9 MBs * (2 + 6 blocks * (15
+# DC + 63 * 28 AC + 2 EOB)) bits = 12,026 B, rounded up to a multiple of
+# 512: a compat slice never overflows
+MAX_SLICE_BYTES_COMPAT = 12288
+
+
+def _validate_frames(frames: np.ndarray) -> None:
+    if frames.ndim != 4 or frames.shape[-1] != 3:
+        raise ValueError(f"expected (B, H, W, 3) uint8 RGB frames, got {frames.shape}")
+    if frames.shape[1] < CROP_H or frames.shape[2] < CROP_W:
+        raise ValueError(
+            f"compat mode encodes a {CROP_W}x{CROP_H} region; frames of "
+            f"{frames.shape[2]}x{frames.shape[1]} are too small"
+        )
+    if frames.dtype != np.uint8:
+        raise ValueError(f"expected uint8 frames, got {frames.dtype}")
 
 
 class CompatCore(nn.Module):

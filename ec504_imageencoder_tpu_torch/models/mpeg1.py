@@ -1,30 +1,32 @@
 """Correct-mode (ISO 11172-2) MPEG-1 intra encoder on PyTorch.
 
-The device part of `ec504_imageencoder_tpu.models.mpeg1` on torch tensors:
-colour conversion and 4:2:0 subsampling, then the slots, then kernel B2
-(bit placement into big-endian slice buffers, 38 bits in) and the OR of
-the slice headers.  The slots come from one of the two DCTs of the
-reference (`dct_impl`):
+The port of the reference's `models/mpeg1.py`.  The device part runs on
+torch tensors: colour conversion and 4:2:0 subsampling, then the slots,
+then the pack (bit placement into big-endian slice buffers, 38 bits in)
+and the OR of the slice headers.  The slots come from one of the two DCTs
+of the reference (`dct_impl`):
 
 * "aan", the integer AAN DCT: kernel B1 (DCT, quantize, zigzag, DC
-  prediction, VLC emission, 4:1 fusion) reads the planes;
+  prediction, VLC emission, 4:1 fusion) reads the planes, kernel B2
+  packs; with `fuse=8` (the reference's EC504_FUSE=8) kernel B6b fuses
+  8:1 instead and kernel B6c packs its 256-bit slots;
 * "f32", the f32 matrix DCT of the high-quality path: blockize,
   `matmul_dct`, quantize, zigzag and DC prediction in PyTorch
   (`f32_levels`, the reference's `_generic_pipeline_from_planes`), then
-  kernel B3 (VLC emission, 4:1 fusion).
+  kernel B3 (VLC emission, 4:1 fusion) and B2.
 
 With `debug_checks` (the port's counterpart of the reference's
-EC504_DEBUG_CHECKS=1) raw (code, len) slots take the place of B1 and B3:
-kernel B6a for "aan", or the plain emission with its table lookups
+EC504_DEBUG_CHECKS=1) raw (code, len) slots take the place of B1, B6b and
+B3: kernel B6a for "aan", or the plain emission with its table lookups
 through kernel B5 for "f32"; the slot invariants are checked, the slots
 fused in PyTorch (`bitpack.fuse4`) and packed by B2's checked form, and a
 slice with violations reports their count negated in its bit count.
 
 On the CPU the kernels' plain twins run instead.
 
-The host part (slice sizing, regrow, header builders, `assemble`) is the
-reference's own `MPEG1IntraEncoder`, which `TorchMPEG1IntraEncoder`
-subclasses.
+The host part is the port's own copy of the reference's: quality to
+quantizer, slice-buffer sizing, macroblock padding, the header builders,
+the regrow loop and `assemble`.
 """
 
 from __future__ import annotations
@@ -37,18 +39,144 @@ from ec504_imageencoder_tpu_torch.device import resolve_device
 from ec504_imageencoder_tpu_torch.ops.bitpack import fuse4, or_slice_headers
 from ec504_imageencoder_tpu_torch.ops.color import rgb_to_ycbcr, subsample_420
 from ec504_imageencoder_tpu_torch.ops.cuda_lut import block_streams_lut
-from ec504_imageencoder_tpu_torch.ops.cuda_pack import pack_fused4
-from ec504_imageencoder_tpu_torch.ops.cuda_vlc import Luts, blockize, to_i32_bits, vlc_fused4
+from ec504_imageencoder_tpu_torch.ops.cuda_pack import pack_fused4, pack_fused8
+from ec504_imageencoder_tpu_torch.ops.cuda_vlc import (
+    Luts,
+    blockize,
+    to_i32_bits,
+    vlc_fused4,
+    vlc_fused8,
+)
 from ec504_imageencoder_tpu_torch.ops.cuda_vlc_levels import vlc_levels4
 from ec504_imageencoder_tpu_torch.ops.cuda_vlc_raw import vlc_raw
 from ec504_imageencoder_tpu_torch.ops.dct import matmul_dct
 from ec504_imageencoder_tpu_torch.ops.quant import quantize_intra
 from ec504_imageencoder_tpu_torch.ops.vlc_device import dc_predictors, slot_violations
 from ec504_imageencoder_tpu_torch.ops.zigzag import zigzag_scan
-from ec504_imageencoder_tpu_torch.shared import MPEG1IntraEncoder, slice_bytes_bucket
+from ec504_imageencoder_tpu_torch.syntax import headers
+from ec504_imageencoder_tpu_torch.syntax.bitwriter import BitWriter
+from ec504_imageencoder_tpu_torch.utils.tables import ZIGZAG_GATHER, scale_quantization_matrix
 
 SLICE_HEADER_BITS = 38  # slice start code (32) + quantizer_scale (5) + extra_bit (1)
 DCT_IMPLS = ("aan", "f32")
+FUSES = (4, 8)
+
+# ---- host half: the reference's own rules ---------------------------------
+
+FRAME_RATE_CODES = {
+    23.976: 1, 24.0: 2, 25.0: 3, 29.97: 4, 30.0: 5, 50.0: 6, 59.94: 7, 60.0: 8,
+}
+FRAME_RATE_VALUES = {v: k for k, v in FRAME_RATE_CODES.items()}
+
+# 12-bit sequence-header fields bound the width at 4095; the slice start
+# codes 0x01..0xAF bound the height at 175 macroblock rows.
+MAX_WIDTH = 4095
+MAX_HEIGHT = 175 * 16  # 2800
+
+
+def quality_to_quant(quality: int) -> tuple[np.ndarray, int]:
+    """JPEG-style quality 1..100 -> (intra matrix int32, quant_scale): the
+    JPEG scaled matrix becomes the intra matrix with quant_scale absorbing
+    the factor above the 8-bit entry range (both capped by the format, so
+    quality <= 4 saturates at steps of ~988)."""
+    m = scale_quantization_matrix(quality).astype(np.int64)
+    s = max(1, int(np.ceil(m.max() / 255.0)))
+    qscale = int(np.clip(8 * s, 1, 31))
+    w = np.clip(np.round(8.0 * m / qscale), 1, 255).astype(np.int32)
+    return w, qscale
+
+
+def slice_bytes_bucket(nbytes: int) -> int:
+    """A slice-buffer size rounded up to a multiple of 512, at least 2560."""
+    return max(2560, -(-nbytes // 512) * 512)
+
+
+def worst_case_slice_bytes(mbw: int) -> int:
+    """Upper bound on one slice's bytes: per block a DC size code and bits
+    (<= 16), 63 AC escapes of 28 bits and a 2-bit EOB; per MB a 2-bit
+    header; per slice 38 header bits."""
+    per_block = 8 + 8 + 63 * 28 + 2
+    bits = 38 + mbw * (2 + 6 * per_block)
+    return slice_bytes_bucket(-(-bits // 8))
+
+
+def initial_slice_bytes(quality: int, mbw: int) -> int:
+    """Default slice-buffer size for (quality, frame width): sized from
+    content with headroom, not the worst case; a slice that overflows
+    regrows the buffer once, exactly."""
+    if quality <= 60:
+        per_block = 256
+    elif quality <= 85:
+        per_block = 384
+    else:
+        per_block = 512
+    bits = 38 + mbw * 6 * per_block
+    return min(slice_bytes_bucket(-(-bits // 8)), worst_case_slice_bytes(mbw))
+
+
+def pad_to_macroblocks(frames: np.ndarray) -> np.ndarray:
+    """Edge-replicate (B, H, W, 3) frames to multiples of 16."""
+    h, w = frames.shape[1:3]
+    ph, pw = -h % 16, -w % 16
+    if ph or pw:
+        frames = np.pad(frames, ((0, 0), (0, ph), (0, pw), (0, 0)), mode="edge")
+    return frames
+
+
+def pad_planes_to_macroblocks(y, cb, cr):
+    """Edge-replicate 4:2:0 planes so Y is a multiple of 16 (chroma 8)."""
+    h, w = y.shape[1:3]
+    ph, pw = -h % 16, -w % 16
+    if ph or pw:
+        y = np.pad(y, ((0, 0), (0, ph), (0, pw)), mode="edge")
+    th, tw = y.shape[1] // 2, y.shape[2] // 2
+    ch, cw = cb.shape[1:3]
+    if (ch, cw) != (th, tw):
+        pad = ((0, 0), (0, th - ch), (0, tw - cw))
+        cb = np.pad(cb, pad, mode="edge")
+        cr = np.pad(cr, pad, mode="edge")
+    return y, cb, cr
+
+
+def sequence_header_es(width: int, height: int, frame_rate_code: int = 3,
+                       aspect_code: int = 1, vbv_size: int = 20,
+                       intra_matrix: np.ndarray | None = None) -> bytes:
+    """ISO 11172-2 §2.4.2.3 sequence header, with an optional intra
+    quantizer matrix (sent in zigzag order)."""
+    w = BitWriter()
+    w.put_bytes(headers.SEQUENCE_START)
+    w.put(width, 12)
+    w.put(height, 12)
+    w.put(aspect_code, 4)
+    w.put(frame_rate_code, 4)
+    w.put(0x3FFFF, 18)  # variable bitrate
+    w.put(1, 1)         # marker
+    w.put(vbv_size, 10)
+    w.put(0, 1)         # constrained_parameters_flag
+    if intra_matrix is not None:
+        w.put(1, 1)     # load_intra_quantizer_matrix
+        for v in intra_matrix.reshape(64)[ZIGZAG_GATHER].tolist():
+            w.put(int(v), 8)
+    else:
+        w.put(0, 1)
+    w.put(0, 1)         # load_non_intra_quantizer_matrix
+    w.align(0)
+    return w.tobytes()
+
+
+def gop_header_es(frame_index: int, fps: float, closed: bool = True) -> bytes:
+    """GOP header with an SMPTE-style timecode for the frame index."""
+    fps_i = max(1, int(round(fps)))
+    total_s, pic = divmod(frame_index, fps_i)
+    total_m, sec = divmod(total_s, 60)
+    hour, minute = divmod(total_m, 60)
+    return headers.gop_header(
+        hour=hour, minute=minute, second=sec, num_pic=pic,
+        drop_frame=0, closed=1 if closed else 0, broken=0,
+    )
+
+
+# ---- device half ----------------------------------------------------------
 
 
 def f32_levels(y, cb, cr, qw, zigzag):
@@ -69,13 +197,17 @@ def f32_levels(y, cb, cr, qw, zigzag):
 class EncodeCore(nn.Module):
     """Quantizer state and VLC tables as buffers; forward runs the device
     pipeline from padded 4:2:0 planes to slice segments with the DCT
-    `dct_impl` ("aan" or "f32")."""
+    `dct_impl` ("aan" or "f32") and, on the AAN production route, `fuse`
+    (4: B1 and B2; 8: B6b and B6c)."""
 
-    def __init__(self, intra_q: np.ndarray, qscale: int, dct_impl: str):
+    def __init__(self, intra_q: np.ndarray, qscale: int, dct_impl: str, fuse: int = 4):
         super().__init__()
         if dct_impl not in DCT_IMPLS:
             raise ValueError(f"dct_impl must be 'aan' or 'f32', got {dct_impl!r}")
+        if fuse not in FUSES:
+            raise ValueError(f"fuse must be 4 or 8, got {fuse!r}")
         self.dct_impl = dct_impl
+        self.fuse = fuse
         self.qscale = int(qscale)
         iq = torch.as_tensor(np.asarray(intra_q), dtype=torch.int32)
         self.register_buffer("intra_q", iq)
@@ -105,6 +237,9 @@ class EncodeCore(nn.Module):
             seg, nbits, pviol = pack_fused4(*slots, mw, bit_offset=SLICE_HEADER_BITS, checks=True)
             viol = viol + pviol
             nbits = torch.where(viol > 0, -viol, nbits)
+        elif self.dct_impl == "aan" and self.fuse == 8:
+            words, flens = vlc_fused8(y, cb, cr, self.qw, self.luts())
+            seg, nbits = pack_fused8(words, flens, mw, bit_offset=SLICE_HEADER_BITS)
         else:
             if self.dct_impl == "aan":
                 slots = vlc_fused4(y, cb, cr, self.qw, self.luts())
@@ -147,17 +282,24 @@ def correct_pipeline(core: EncodeCore, rgb, max_slice_bytes: int,
     return core(y, subsample_420(cb), subsample_420(cr), max_slice_bytes, debug_checks)
 
 
-class TorchMPEG1IntraEncoder(MPEG1IntraEncoder):
-    """`MPEG1IntraEncoder` whose device pipeline runs on torch tensors on
-    `device`: the CUDA kernels on a GPU, their plain twins on the CPU.
+class TorchMPEG1IntraEncoder:
+    """ISO-compliant all-I-frame MPEG-1 video encoder whose device pipeline
+    runs on torch tensors on `device`: the CUDA kernels on a GPU, their
+    plain twins on the CPU.  The public API, keywords and errors are the
+    reference `MPEG1IntraEncoder`'s, with `device` in place of `backend`.
 
-    encode(), encode_from_planes() and encode_to_file() are the reference's
-    own.  dct_impl is the reference's: "auto" picks "f32" at quality >= 70
-    and "aan" below.  With "aan" the byte stream equals the reference's for
+    dct_impl is the reference's: "auto" picks "f32" at quality >= 70 and
+    "aan" below.  With "aan" the byte stream equals the reference's for
     the same settings.  With "f32" it equals the reference's numpy backend
     (the port repeats its f32 operations) on every device and batch split;
     the reference's XLA backend may break an f32 tie the other way, and
     decodes to the same PSNR within 0.05 dB.
+
+    fuse (4 or 8) is the reference's EC504_FUSE, under its rule: 8 runs
+    the 8:1-fusion kernels (B6b, then B6c) on the AAN production route
+    only.  Under debug_checks=True the sanitizer's routes run unchanged,
+    and with dct_impl="f32" it has no effect (the reference's generic path
+    always fuses 4:1).  The bytes are the same either way.
 
     debug_checks=True is the sanitizer (the reference's
     EC504_DEBUG_CHECKS=1): the device pipeline runs its raw-slot routes
@@ -167,35 +309,58 @@ class TorchMPEG1IntraEncoder(MPEG1IntraEncoder):
     def __init__(self, quality: int = 50, frame_rate_code: int = 3,
                  gop_size: int = 15, max_slice_bytes: int | None = None,
                  dct_impl: str = "auto", color_range: str = "studio",
-                 grow_slices: bool = True, debug_checks: bool = False, *, device):
-        super().__init__(
-            quality=quality, frame_rate_code=frame_rate_code, gop_size=gop_size,
-            max_slice_bytes=max_slice_bytes, backend="torch", dct_impl=dct_impl,
-            color_range=color_range, grow_slices=grow_slices,
-        )
-        if self.dct_impl not in DCT_IMPLS:
+                 grow_slices: bool = True, debug_checks: bool = False,
+                 fuse: int = 4, *, device):
+        if color_range not in ("studio", "full"):
+            raise ValueError(f"color_range must be 'studio' or 'full', got {color_range!r}")
+        if dct_impl == "auto":
+            dct_impl = "f32" if quality >= 70 else "aan"
+        if dct_impl not in DCT_IMPLS:
             raise ValueError(f"dct_impl must be 'auto', 'aan' or 'f32', got {dct_impl!r}")
+        if fuse not in FUSES:
+            raise ValueError(f"fuse must be 4 or 8, got {fuse!r}")
+        self.quality = quality
+        self.dct_impl = dct_impl
+        self.color_range = color_range
+        self.frame_rate_code = frame_rate_code
+        self.fps = FRAME_RATE_VALUES[frame_rate_code]
+        self.gop_size = gop_size
+        # None: sized from (quality, frame width) at the first encode.  An
+        # explicit size is a starting size: an overflowing slice regrows it
+        # and re-encodes, unless grow_slices=False (OverflowError).
+        self.max_slice_bytes = max_slice_bytes
+        self.grow_slices = grow_slices
         self.debug_checks = bool(debug_checks)
+        self.fuse = fuse
+        self.metrics = None  # optional sink with a histogram(name, values) method
         self.device = resolve_device(device)
-        self._set_quant(self.intra_q, self.qscale)
+        self._set_quant(*quality_to_quant(quality))
 
     def _set_quant(self, intra_q: np.ndarray, qscale: int) -> None:
         self.intra_q = np.array(intra_q, dtype=np.int32)
         self.qscale = int(qscale)
-        self.core = EncodeCore(self.intra_q, self.qscale, self.dct_impl).to(self.device)
+        self.core = EncodeCore(self.intra_q, self.qscale, self.dct_impl, self.fuse).to(self.device)
 
     @classmethod
-    def from_reference(cls, enc: MPEG1IntraEncoder, device) -> "TorchMPEG1IntraEncoder":
-        """A port encoder that computes what `enc` computes: its quality,
-        quantizer, DCT, colour range, GOP, frame rate and slice sizing."""
+    def from_reference(cls, enc, device, **kw) -> "TorchMPEG1IntraEncoder":
+        """A port encoder that computes what the reference encoder `enc`
+        computes: its quality, quantizer, DCT, colour range, GOP, frame
+        rate and slice sizing, read from its attributes.  kw: the port's
+        own keywords (debug_checks, fuse)."""
         port = cls(
             quality=enc.quality, frame_rate_code=enc.frame_rate_code,
             gop_size=enc.gop_size, max_slice_bytes=enc.max_slice_bytes,
             dct_impl=enc.dct_impl, color_range=enc.color_range,
-            grow_slices=enc.grow_slices, device=device,
+            grow_slices=enc.grow_slices, device=device, **kw,
         )
         port._set_quant(enc.intra_q, enc.qscale)
         return port
+
+    def resolve_slice_bytes(self, mbw: int) -> int:
+        """Current slice-buffer size, auto-sized on first use."""
+        if self.max_slice_bytes is None:
+            self.max_slice_bytes = initial_slice_bytes(self.quality, mbw)
+        return self.max_slice_bytes
 
     def _pipeline_once(self, padded: np.ndarray, msb: int):
         rgb = torch.from_numpy(padded).to(self.device)
@@ -206,11 +371,15 @@ class TorchMPEG1IntraEncoder(MPEG1IntraEncoder):
                      for p in planes)
         return correct_pipeline_planes(self.core, y, cb, cr, msb, self.debug_checks)
 
+    def _run_pipeline(self, padded: np.ndarray):
+        return self._run_with_regrow(
+            lambda msb: self._pipeline_once(padded, msb), padded.shape[2] // 16)
+
     def _run_with_regrow(self, run_once, mbw: int):
-        """The reference's regrow loop on torch outputs: fetch the bit
-        counts, raise on a negated one (the violations that debug_checks
-        found), regrow once if a slice overflowed (nbits is exact, so one
-        regrow lands), then fetch only the used byte prefix."""
+        """Run, fetch the bit counts, raise on a negated one (the
+        violations that debug_checks found), regrow once if a slice
+        overflowed (nbits is exact, so one regrow lands), then fetch only
+        the used byte prefix, bucketed."""
         msb = self.resolve_slice_bytes(mbw)
         for _attempt in range(3):
             seg_dev, bits_dev = run_once(msb)
@@ -238,6 +407,79 @@ class TorchMPEG1IntraEncoder(MPEG1IntraEncoder):
         used = -(-need_bits // 8)
         bucket = min(max(256, 1 << max(used - 1, 1).bit_length()), msb)
         return seg_dev[:, :, :bucket].cpu().numpy(), bits
+
+    def _record(self, bits, mbw: int) -> None:
+        if self.metrics is not None:
+            self.metrics.histogram("slice_bits", bits)
+            # a slice is one MB row, so bits/MB is the row total split evenly
+            self.metrics.histogram("bits_per_macroblock", bits / mbw)
+
+    def encode(self, frames_rgb: np.ndarray, first_frame_index: int = 0) -> bytes:
+        """Encode (B, H, W, 3) uint8 frames into an MPEG-1 video ES.
+
+        first_frame_index keeps GOP boundaries and timecodes consistent
+        across chunked encodes; callers append `headers.sequence_end()`."""
+        frames = np.ascontiguousarray(frames_rgb)
+        if frames.ndim != 4 or frames.shape[-1] != 3 or frames.dtype != np.uint8:
+            raise ValueError(f"expected (B,H,W,3) uint8, got {frames.shape} {frames.dtype}")
+        disp_h, disp_w = frames.shape[1:3]
+        if disp_w > MAX_WIDTH or disp_h > MAX_HEIGHT:
+            raise ValueError(
+                f"frame {disp_w}x{disp_h} exceeds MPEG-1 limits "
+                f"({MAX_WIDTH}x{MAX_HEIGHT}: 12-bit sequence-header "
+                "dimensions, slice start codes 0x01..0xAF)"
+            )
+        padded = pad_to_macroblocks(frames)
+        seg, bits = self._run_pipeline(padded)
+        self._record(bits, padded.shape[2] // 16)
+        return self.assemble(seg, bits, disp_w, disp_h, first_frame_index)
+
+    def assemble(self, seg, bits, disp_w: int, disp_h: int,
+                 first_frame_index: int = 0) -> bytes:
+        """Sequence, GOP and picture headers plus the used byte prefix of
+        every slice of the fetched (seg (B, S, msb) u8, bits (B, S))."""
+        out = bytearray()
+        for i in range(seg.shape[0]):
+            gi = first_frame_index + i
+            if gi % self.gop_size == 0:
+                out += sequence_header_es(disp_w, disp_h, self.frame_rate_code,
+                                          intra_matrix=self.intra_q)
+                out += gop_header_es(gi, self.fps)
+            out += headers.picture_header(temporal_ref=gi % self.gop_size)
+            for s in range(seg.shape[1]):
+                nb = (int(bits[i, s]) + 7) // 8
+                out += bytes(seg[i, s, :nb])
+        return bytes(out)
+
+    def encode_from_planes(self, y, cb, cr, first_frame_index: int = 0) -> bytes:
+        """Encode 4:2:0 YCbCr planes directly: y (B, H, W) u8, cb/cr
+        (B, ceil(H/2), ceil(W/2)) u8 -> MPEG-1 video ES bytes."""
+        y = np.ascontiguousarray(y)
+        cb = np.ascontiguousarray(cb)
+        cr = np.ascontiguousarray(cr)
+        if y.ndim != 3 or y.dtype != np.uint8:
+            raise ValueError(f"expected (B,H,W) uint8 Y, got {y.shape} {y.dtype}")
+        disp_h, disp_w = y.shape[1:3]
+        exp = (y.shape[0], -(-disp_h // 2), -(-disp_w // 2))
+        if cb.shape != exp or cr.shape != exp:
+            raise ValueError(f"chroma planes must be {exp}, got {cb.shape}/{cr.shape}")
+        if cb.dtype != np.uint8 or cr.dtype != np.uint8:
+            raise ValueError(f"expected uint8 chroma planes, got {cb.dtype}/{cr.dtype}")
+        if disp_w > MAX_WIDTH or disp_h > MAX_HEIGHT:
+            raise ValueError(
+                f"frame {disp_w}x{disp_h} exceeds MPEG-1 limits ({MAX_WIDTH}x{MAX_HEIGHT})"
+            )
+        planes = pad_planes_to_macroblocks(y, cb, cr)
+        mbw = planes[0].shape[2] // 16
+        seg, bits = self._run_with_regrow(lambda msb: self._planes_once(planes, msb), mbw)
+        self._record(bits, mbw)
+        return self.assemble(seg, bits, disp_w, disp_h, first_frame_index)
+
+    def encode_to_file(self, frames_rgb: np.ndarray, path: str) -> int:
+        data = self.encode(frames_rgb) + headers.sequence_end()
+        with open(path, "wb") as f:
+            f.write(data)
+        return len(data)
 
     def encode_from_coeffs(self, yc, cbc, crc, height: int, width: int,
                            first_frame_index: int = 0) -> bytes:

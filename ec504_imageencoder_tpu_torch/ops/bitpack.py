@@ -4,15 +4,19 @@
   `ops/pallas_vlc.fuse_slots_streamwise`: four consecutive (code, len)
   slots of <= 30 bits become one right-aligned value of <= 128 bits,
   held as four 32-bit words v0..v3 (most significant first).
-* `pack_words4`: the prefix-sum pack of such values.  Each value lands
-  at bit offset cumsum(lens) + bit_offset, MSB first, and spans at most
-  5 consecutive 32-bit words.  Words past `max_words` are dropped, but
-  `nbits` is the true total, so the caller can regrow exactly.
+* `fuse8`: the third fusion level, the arithmetic of the reference's
+  `ops/pallas_pack._fuse2_128`: pairs of `fuse4` values (slots 2k, 2k+1)
+  become one value of <= 256 bits, eight words w0..w7.
+* `pack_words4`: the prefix-sum pack of `fuse4` values.  Each value
+  lands at bit offset cumsum(lens) + bit_offset, MSB first, and spans at
+  most 5 consecutive 32-bit words.  Words past `max_words` are dropped,
+  but `nbits` is the true total, so the caller can regrow exactly.
   Contributions are bit-disjoint, so `index_add_` equals an OR.  With
   `checks` it also counts what the checked pack kernel counts: fused
   lengths outside [0, 128], and words whose contributions overlap
   (disjoint bits add without carries, so an overlap shows as a popcount
   of the sum below the sum of the popcounts).
+* `pack_words8`: the same for `fuse8` values, at most 9 words each.
 * `pack_words`: the same for plain <= 32-bit codes (the reference's
   `ops/bitpack.pack_words`).
 * `words_to_bytes`, `or_slice_headers`: big-endian serialisation and
@@ -74,6 +78,32 @@ def fuse4(codes: torch.Tensor, lens: torch.Tensor):
     return v0, v1, v2, v3, l1b + l2b
 
 
+def fuse8(v0, v1, v2, v3, flens):
+    """`fuse4` outputs (..., K) in stream order, K % 2 == 0 ->
+    (words (w0, ..., w7), flens), each (..., K // 2) int64: the values of
+    slots 2k and 2k+1 concatenated, w0 the most significant word."""
+    def pairs(x):
+        x = x.to(_I64).reshape(*x.shape[:-1], -1, 2)
+        return x[..., 0], x[..., 1]
+
+    a, b = zip(*(pairs(v) for v in (v0, v1, v2, v3)))
+    la, lb = pairs(flens)
+    # the 128-bit value a shifted up by lb = 32 q + r bits over 8 words
+    q = lb >> 5
+    r = lb & 31
+    rc = (32 - r) & 31
+    u = [torch.zeros_like(a[0]), *a, torch.zeros_like(a[0])]
+    f = [(_shl(u[i], r) & _M32) | torch.where(r > 0, _shr(u[i + 1], rc), 0) for i in range(5)]
+    w = []
+    for j in range(8):
+        acc = torch.zeros_like(f[0])
+        for qq in range(5):
+            if 0 <= j + qq - 3 <= 4:
+                acc = torch.where(q == qq, f[j + qq - 3], acc)
+        w.append(acc | b[j - 4] if j >= 4 else acc)
+    return tuple(w), la + lb
+
+
 def _popcount(x):
     """Set bits of each non-negative int64."""
     x = x - ((x >> 1) & 0x5555555555555555)
@@ -82,6 +112,50 @@ def _popcount(x):
     x = x + (x >> 8)
     x = x + (x >> 16)
     return (x + (x >> 32)) & 0x7F
+
+
+def _pack_values(vs, flens, max_words: int, bit_offset: int, checks: bool):
+    """The pack of values of up to 32 * len(vs) bits (len(vs) words each,
+    most significant first): each spans at most len(vs) + 1 words."""
+    nw = len(vs)
+    n, kf = flens.shape
+    dev = flens.device
+    lens = flens.to(_I64)
+    ends = torch.cumsum(lens, dim=-1) + bit_offset
+    off = ends - lens
+    nbits = ends[:, -1] if kf else torch.full((n,), bit_offset, dtype=_I64, device=dev)
+    word = off >> 5
+    s = off & 31
+    # place the value at the top of a 32 (nw + 1)-bit window: shift left by
+    # 32 (nw + 1) - s - len = 32 q + r over the words [0, v0, ..., v_{nw-1}]
+    sig = 32 * (nw + 1) - s - lens
+    q = sig >> 5
+    r = sig & 31
+    rc = 32 - r  # 32 when r == 0: an int64 shift by 32 of a u32 gives 0
+    u = [torch.zeros_like(lens)] + [torch.where(lens > 0, v.to(_I64) & _M32, 0) for v in vs]
+    f = [
+        (_shl(u[i], r) & _M32) | (_shr(u[i + 1], rc) if i < nw else 0)
+        for i in range(nw + 1)
+    ]
+    out = torch.zeros(n * max_words, dtype=_I64, device=dev)
+    ones = torch.zeros_like(out) if checks else None
+    rows = torch.arange(n, device=dev, dtype=_I64)[:, None] * max_words
+    for j in range(nw + 1):
+        wj = torch.zeros_like(lens)
+        for qq in range(nw + 1 - j):
+            wj = torch.where(q == qq, f[j + qq], wj)
+        idx = word + j
+        keep = (idx >= 0) & (idx < max_words)
+        at = torch.where(keep, rows + idx, 0).reshape(-1)
+        wj = torch.where(keep, wj, 0).reshape(-1)
+        out.index_add_(0, at, wj)
+        if checks:
+            ones.index_add_(0, at, _popcount(wj))
+    if not checks:
+        return out.reshape(n, max_words), nbits
+    bad_len = ((lens < 0) | (lens > 32 * nw)).sum(dim=-1)
+    overlap = (_popcount(out) != ones).reshape(n, max_words).sum(dim=-1)
+    return out.reshape(n, max_words), nbits, bad_len + overlap
 
 
 def pack_words4(v0, v1, v2, v3, flens, max_words: int, bit_offset: int = 0,
@@ -93,46 +167,14 @@ def pack_words4(v0, v1, v2, v3, flens, max_words: int, bit_offset: int = 0,
 
     A value whose length does not fit its 160-bit window, or a word below
     the buffer (after a negative length), is not placed."""
-    n, kf = flens.shape
-    dev = flens.device
-    lens = flens.to(_I64)
-    ends = torch.cumsum(lens, dim=-1) + bit_offset
-    off = ends - lens
-    nbits = ends[:, -1] if kf else torch.full((n,), bit_offset, dtype=_I64, device=dev)
-    word = off >> 5
-    s = off & 31
-    # place the value at the top of a 160-bit window: shift left by
-    # 160 - s - len = 32 q + r over the words [0, v0, v1, v2, v3]
-    sig = 160 - s - lens
-    q = sig >> 5
-    r = sig & 31
-    rc = 32 - r  # 32 when r == 0: an int64 shift by 32 of a u32 gives 0
-    u = [torch.zeros_like(lens)] + [
-        torch.where(lens > 0, v.to(_I64) & _M32, 0) for v in (v0, v1, v2, v3)
-    ]
-    f = [
-        (_shl(u[i], r) & _M32) | (_shr(u[i + 1], rc) if i < 4 else 0)
-        for i in range(5)
-    ]
-    out = torch.zeros(n * max_words, dtype=_I64, device=dev)
-    ones = torch.zeros_like(out) if checks else None
-    rows = torch.arange(n, device=dev, dtype=_I64)[:, None] * max_words
-    for j in range(5):
-        wj = torch.zeros_like(lens)
-        for qq in range(5 - j):
-            wj = torch.where(q == qq, f[j + qq], wj)
-        idx = word + j
-        keep = (idx >= 0) & (idx < max_words)
-        at = torch.where(keep, rows + idx, 0).reshape(-1)
-        wj = torch.where(keep, wj, 0).reshape(-1)
-        out.index_add_(0, at, wj)
-        if checks:
-            ones.index_add_(0, at, _popcount(wj))
-    if not checks:
-        return out.reshape(n, max_words), nbits
-    bad_len = ((lens < 0) | (lens > 128)).sum(dim=-1)
-    overlap = (_popcount(out) != ones).reshape(n, max_words).sum(dim=-1)
-    return out.reshape(n, max_words), nbits, bad_len + overlap
+    return _pack_values((v0, v1, v2, v3), flens, max_words, bit_offset, checks)
+
+
+def pack_words8(words, flens, max_words: int, bit_offset: int = 0):
+    """8 (n, KF) words of <= 256-bit values (most significant first) +
+    (n, KF) lengths -> (words (n, max_words) int64, nbits (n,) int64),
+    as `pack_words4`."""
+    return _pack_values(tuple(words), flens, max_words, bit_offset, False)
 
 
 def pack_words(codes, lens, max_words: int, bit_offset: int = 0):

@@ -1,15 +1,31 @@
-"""BT.601 colour conversion and 4:2:0 subsampling in int32.
+"""BT.601 colour conversion and 4:2:0 subsampling.
 
-Bit-identical to `ec504_imageencoder_tpu.ops.color` (`_ycbcr_studio_i32`,
-`_ycbcr_full_i32`, `subsample_420`): 16-bit fixed point with a 1<<15
-rounding bias and arithmetic right shifts, clipped to u8.
+* `rgb_to_ycbcr`, `subsample_420`: torch int32, bit-identical to the
+  reference's `ops/color.py` (`_ycbcr_studio_i32`, `_ycbcr_full_i32`,
+  `subsample_420`): 16-bit fixed point with a 1<<15 rounding bias and
+  arithmetic right shifts, clipped to u8;
+* `rgb_to_ycbcr_exact`: compat mode's host colour in numpy f64, the
+  reference C encoder's double arithmetic with its (unsigned char)
+  truncation (image_processing.c:68-110), which the `.bit` dumps hold.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _HALF = 1 << 15
+
+
+def rgb_to_ycbcr_exact(rgb: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(..., H, W, 3) uint8 -> three (..., H, W) uint8 planes, C-double-exact."""
+    r = rgb[..., 0].astype(np.float64)
+    g = rgb[..., 1].astype(np.float64)
+    b = rgb[..., 2].astype(np.float64)
+    y = (0.299 * r + 0.587 * g + 0.114 * b).astype(np.uint8)
+    cb = (128 - 0.168736 * r - 0.331264 * g + 0.5 * b).astype(np.uint8)
+    cr = (128 + 0.5 * r - 0.418688 * g - 0.081312 * b).astype(np.uint8)
+    return y, cb, cr
 
 
 def _u8(v: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,20 @@
-"""Kernel B2: 4:1-fused VLC slots -> big-endian slice bytes + bit counts.
+"""Kernels B2 and B6c: fused VLC slots -> big-endian slice bytes + bit counts.
 
-The CUDA kernel (`csrc/pack_fused4.cu`) replaces the Pallas kernel
-`ec504_imageencoder_tpu/ops/pallas_pack.py::_fused4_kernel` as launched by
-`pack_words_fused4_core(..., emit_be=True)`, plus the bitcast to bytes.
-`pack_fused4_plain` is its plain PyTorch twin (`bitpack.pack_words4`,
-the same <= 5-word split, `index_add_`ed into int64 words).
+One CUDA source (`csrc/pack_fused4.cu`, a kernel templated on the words
+per slot) replaces two Pallas kernels of
+`ec504_imageencoder_tpu/ops/pallas_pack.py`, each with the bitcast to
+bytes behind it:
+
+* `pack_fused4` (B2) replaces `_fused4_kernel` as launched by
+  `pack_words_fused4_core(..., emit_be=True)`: 4:1-fused slots of <= 128
+  bits.  `pack_fused4_plain` is its plain PyTorch twin
+  (`bitpack.pack_words4`, the same <= 5-word split, `index_add_`ed into
+  int64 words).
+* `pack_fused8` (B6c) replaces `_fused8_kernel` (`pack_words_fused8_core`,
+  the reference's EC504_FUSE=8 route): 8:1-fused slots of <= 256 bits,
+  each spanning <= 9 words.  Any max_words works (the TPU kernel's
+  multiple-of-128 limit was its tiling).  Twin: `pack_fused8_plain`
+  (`bitpack.pack_words8`).
 
 `checks=True` runs the checked form, which replaces the debug outputs of
 `_fused4_kernel` (`pack_words_fused4_core(..., debug=True)`) and also
@@ -14,7 +24,7 @@ only as zero / nonzero (the kernel counts the placements that found bits
 already set, which depends on the order of its atomics; the twin counts
 the words whose contributions overlap).
 
-`pack_fused4` runs the twin for CPU tensors and the kernel for CUDA
+Each wrapper runs its twin for CPU tensors and its kernel for CUDA
 tensors; there is no other route.
 """
 
@@ -25,22 +35,24 @@ import ctypes
 import torch
 
 from ec504_imageencoder_tpu_torch.ops import _build
-from ec504_imageencoder_tpu_torch.ops.bitpack import pack_words4, words_to_bytes
+from ec504_imageencoder_tpu_torch.ops.bitpack import pack_words4, pack_words8, words_to_bytes
 
-# kernel launches since the last reset, unchecked and checked (launches
-# for CPU tensors excluded)
+# kernel launches since the last reset: B2 unchecked and checked, B6c
+# (launches for CPU tensors excluded)
 launches = 0
 launches_checked = 0
+launches8 = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
     "pack_fused4_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P],
+    "pack_fused8_launch": [*[_P] * 9, _I, _I, _I, _I, _P, _P, _I, _P],
 }
 
 
 def load_kernel():
-    """Build (at first use) and load the kernel's shared library."""
+    """Build (at first use) and load the kernels' shared library."""
     return _build.load("pack_fused4", _ARGTYPES)
 
 
@@ -51,6 +63,23 @@ def pack_fused4_plain(v0, v1, v2, v3, flens, max_words: int, bit_offset: int = 3
     out = pack_words4(v0, v1, v2, v3, flens, max_words, bit_offset, checks=checks)
     head = (words_to_bytes(out[0]), out[1].to(torch.int32))
     return head + (out[2].to(torch.int32),) if checks else head
+
+
+def _check(vs, max_words: int, bit_offset: int, name: str) -> None:
+    """Raise unless vs (word planes, then the lengths) are int32 (n, KF)
+    tensors on one device, contiguous on a CUDA device."""
+    flens = vs[-1]
+    if flens.dim() != 2:
+        raise ValueError(f"flens must be (n, KF), got {tuple(flens.shape)}")
+    for t in vs:
+        if t.dtype != torch.int32 or t.shape != flens.shape or t.device != flens.device:
+            raise ValueError("the word planes and flens must be int32 (n, KF) on one device")
+    if max_words <= 0 or bit_offset < 0:
+        raise ValueError(f"bad max_words={max_words} / bit_offset={bit_offset}")
+    if flens.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {flens.device}")
+    if flens.device.type == "cuda" and not all(t.is_contiguous() for t in vs):
+        raise ValueError(f"{name} needs contiguous tensors")
 
 
 def pack_fused4(v0, v1, v2, v3, flens, max_words: int, bit_offset: int = 38,
@@ -65,19 +94,9 @@ def pack_fused4(v0, v1, v2, v3, flens, max_words: int, bit_offset: int = 38,
     true bit count including bit_offset, even when it exceeds the buffer."""
     global launches, launches_checked
     vs = (v0, v1, v2, v3, flens)
-    if flens.dim() != 2:
-        raise ValueError(f"flens must be (n, KF), got {tuple(flens.shape)}")
-    for t in vs:
-        if t.dtype != torch.int32 or t.shape != flens.shape or t.device != flens.device:
-            raise ValueError("v0..v3 and flens must be int32 (n, KF) on one device")
-    if max_words <= 0 or bit_offset < 0:
-        raise ValueError(f"bad max_words={max_words} / bit_offset={bit_offset}")
+    _check(vs, max_words, bit_offset, "pack_fused4")
     if flens.device.type == "cpu":
         return pack_fused4_plain(*vs, max_words, bit_offset, checks)
-    if flens.device.type != "cuda":
-        raise ValueError(f"unsupported device {flens.device}")
-    if not all(t.is_contiguous() for t in vs):
-        raise ValueError("pack_fused4 needs contiguous tensors")
     lib = load_kernel()
     n, kf = flens.shape
     seg = torch.empty((n, 4 * max_words), dtype=torch.uint8, device=flens.device)
@@ -93,4 +112,35 @@ def pack_fused4(v0, v1, v2, v3, flens, max_words: int, bit_offset: int = 38,
         launches_checked += 1
         return seg, nbits, viol
     launches += 1
+    return seg, nbits
+
+
+def pack_fused8_plain(words, flens, max_words: int, bit_offset: int = 38):
+    """Plain twin of B6c: same arguments, same outputs."""
+    out, nbits = pack_words8(words, flens, max_words, bit_offset)
+    return words_to_bytes(out), nbits.to(torch.int32)
+
+
+def pack_fused8(words, flens, max_words: int, bit_offset: int = 38):
+    """B6c.  words: 8 (n, KF) int32 word planes (u32 words of values of
+    flens <= 256 bits, most significant first); flens (n, KF) int32 ->
+    (seg (n, 4 * max_words) u8, nbits (n,) int32), as `pack_fused4`."""
+    global launches8
+    vs = (*words, flens)
+    if len(vs) != 9:
+        raise ValueError(f"pack_fused8 takes 8 word planes, got {len(vs) - 1}")
+    _check(vs, max_words, bit_offset, "pack_fused8")
+    if flens.device.type == "cpu":
+        return pack_fused8_plain(words, flens, max_words, bit_offset)
+    lib = load_kernel()
+    n, kf = flens.shape
+    seg = torch.empty((n, 4 * max_words), dtype=torch.uint8, device=flens.device)
+    nbits = torch.empty((n,), dtype=torch.int32, device=flens.device)
+    err = lib.pack_fused8_launch(
+        *(t.data_ptr() for t in vs), n, kf, max_words, bit_offset,
+        seg.data_ptr(), nbits.data_ptr(),
+        flens.device.index, torch.cuda.current_stream(flens.device).cuda_stream,
+    )
+    _build.check(lib, "pack_fused4", err)
+    launches8 += 1
     return seg, nbits

@@ -1,14 +1,18 @@
-"""Kernel B1: 4:2:0 planes -> 4:1-fused VLC slots in stream order.
+"""Kernels B1 and B6b: 4:2:0 planes -> 4:1- or 8:1-fused VLC slots in
+stream order.
 
-The CUDA kernel (`csrc/vlc_fused4.cu`) replaces the Pallas kernel
-`ec504_imageencoder_tpu/ops/pallas_vlc.py::_vlc_blocks_fused_kernel`
-together with the blockize in front of it and `fused_stack_to_stream`
-behind it.  `vlc_fused4_plain` is its plain PyTorch twin, composed from
-the port's colour-free ops: blockize, AAN DCT, quantization, zigzag, DC
-prediction, 64-slot emission and 4:1 fusion.
+One CUDA kernel template (`csrc/vlc_fused4.cu`) replaces the Pallas
+kernels `ec504_imageencoder_tpu/ops/pallas_vlc.py::_vlc_blocks_fused_kernel`
+(B1, `vlc_fused4`) and `_vlc_blocks_fused8_kernel` (B6b, `vlc_fused8`,
+the reference's EC504_FUSE=8 route), each with the blockize in front of
+it and `fused_stack_to_stream` / `fused8_stack_to_stream` behind it.
+`vlc_fused4_plain` is B1's plain PyTorch twin, composed from the port's
+colour-free ops: blockize, AAN DCT, quantization, zigzag, DC prediction,
+64-slot emission and 4:1 fusion; `vlc_fused8_plain` adds the third fusion
+level `bitpack.fuse8`.
 
-`vlc_fused4` runs the twin for CPU tensors and the kernel for CUDA
-tensors; there is no other route.
+`vlc_fused4` and `vlc_fused8` run the twin for CPU tensors and the kernel
+for CUDA tensors; there is no other route.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ from typing import NamedTuple
 import torch
 
 from ec504_imageencoder_tpu_torch.ops import _build
-from ec504_imageencoder_tpu_torch.ops.bitpack import fuse4
+from ec504_imageencoder_tpu_torch.ops.bitpack import fuse4, fuse8
 from ec504_imageencoder_tpu_torch.ops.dct import aan_dct
 from ec504_imageencoder_tpu_torch.ops.quant import quantize_intra
 from ec504_imageencoder_tpu_torch.ops.vlc_device import (
@@ -29,17 +33,17 @@ from ec504_imageencoder_tpu_torch.ops.vlc_device import (
 from ec504_imageencoder_tpu_torch.ops.zigzag import zigzag_scan
 from ec504_imageencoder_tpu_torch.utils import tables
 
-# kernel launches since the last reset (launches for CPU tensors excluded)
+# kernel launches since the last reset (launches for CPU tensors excluded):
+# B1 (vlc_fused4) and B6b (vlc_fused8)
 launches = 0
+launches8 = 0
 
 MAX_WIDTH = 4096  # the kernel keeps one slice's DC values in shared memory
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = {
-    "vlc_fused4_launch": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                          _P, _P, _P, _P, _P, _I, _P],
-}
+_LAUNCH = [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P]
+_ARGTYPES = {"vlc_fused4_launch": _LAUNCH, "vlc_fused8_launch": _LAUNCH}
 
 
 class Luts(NamedTuple):
@@ -54,16 +58,16 @@ class Luts(NamedTuple):
     def default(cls, device) -> "Luts":
         """The ISO tables of correct mode (B1, B3)."""
         return cls(*(t.to(device) for t in (
-            tables.ZIGZAG_GATHER, tables.AC_CODE, tables.AC_LEN,
-            tables.DC_CODE, tables.DC_LEN,
+            tables.ZIGZAG_GATHER_T, tables.AC_CODE_T, tables.AC_LEN_T,
+            tables.DC_CODE_T, tables.DC_LEN_T,
         )))
 
     @classmethod
     def compat(cls, device) -> "Luts":
         """The same with the compat AC table (B4)."""
         return cls(*(t.to(device) for t in (
-            tables.ZIGZAG_GATHER, tables.AC_CODE_COMPAT, tables.AC_LEN_COMPAT,
-            tables.DC_CODE, tables.DC_LEN,
+            tables.ZIGZAG_GATHER_T, tables.AC_CODE_COMPAT_T, tables.AC_LEN_COMPAT_T,
+            tables.DC_CODE_T, tables.DC_LEN_T,
         )))
 
     def check(self, device) -> None:
@@ -78,7 +82,7 @@ class Luts(NamedTuple):
 
 
 def load_kernel():
-    """Build (at first use) and load the kernel's shared library."""
+    """Build (at first use) and load the kernels' shared library."""
     return _build.load("vlc_fused4", _ARGTYPES)
 
 
@@ -130,8 +134,16 @@ def vlc_fused4_plain(y, cb, cr, qw, luts: Luts):
     return tuple(to_i32_bits(t) for t in fused)
 
 
+def vlc_fused8_plain(y, cb, cr, qw, luts: Luts):
+    """Plain twin of B6b: same arguments, same outputs."""
+    codes, lens, _ = block_slots(y, cb, cr, qw, luts)
+    r = codes.shape[0]
+    words, flens = fuse8(*fuse4(codes.reshape(r, -1), lens.reshape(r, -1)))
+    return tuple(to_i32_bits(w) for w in words), flens.to(torch.int32)
+
+
 def check_planes(y, cb, cr, qw, luts: Luts) -> None:
-    """Raise unless the arguments are what B1 and B6a take."""
+    """Raise unless the arguments are what B1, B6a and B6b take."""
     if y.dim() != 3:
         raise ValueError(f"y must be (B, H, W), got {tuple(y.shape)}")
     bsz, h, w = y.shape
@@ -160,6 +172,28 @@ def check_matrix(name: str, m: torch.Tensor, device) -> None:
         raise ValueError(f"{name} is on {m.device}, the input on {device}")
 
 
+def _launch(fuse: int, y, cb, cr, qw, luts: Luts) -> torch.Tensor:
+    """Launch the kernel at fusion level `fuse` on CUDA tensors ->
+    (fuse + 1, R, NB * 64 / fuse) int32: the word planes, then the
+    lengths."""
+    name = f"vlc_fused{fuse}"
+    if y.device.type != "cuda":
+        raise ValueError(f"unsupported device {y.device}")
+    if not all(t.is_contiguous() for t in (y, cb, cr, qw, *luts)):
+        raise ValueError(f"{name} needs contiguous tensors")
+    lib = load_kernel()
+    bsz, h, w = y.shape
+    out = torch.empty((fuse + 1, bsz * (h // 16), (w // 16) * 6 * (64 // fuse)),
+                      dtype=torch.int32, device=y.device)
+    err = getattr(lib, f"{name}_launch")(
+        *(t.data_ptr() for t in (y, cb, cr)), bsz, h, w,
+        *(t.data_ptr() for t in (qw, *luts)), out.data_ptr(),
+        y.device.index, torch.cuda.current_stream(y.device).cuda_stream,
+    )
+    _build.check(lib, "vlc_fused4", err)
+    return out
+
+
 def vlc_fused4(y, cb, cr, qw, luts: Luts):
     """Planes y (B, H, W) u8, cb/cr (B, H/2, W/2) u8 (H, W multiples of 16),
     qw (8, 8) int32 = qscale * intra matrix ->
@@ -170,21 +204,21 @@ def vlc_fused4(y, cb, cr, qw, luts: Luts):
     check_planes(y, cb, cr, qw, luts)
     if y.device.type == "cpu":
         return vlc_fused4_plain(y, cb, cr, qw, luts)
-    if y.device.type != "cuda":
-        raise ValueError(f"unsupported device {y.device}")
-    tensors = (y, cb, cr, qw, *luts)
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("vlc_fused4 needs contiguous tensors")
-    lib = load_kernel()
-    bsz, h, w = y.shape
-    out = torch.empty((5, bsz * (h // 16), (w // 16) * 6 * 16), dtype=torch.int32,
-                      device=y.device)
-    err = lib.vlc_fused4_launch(
-        *(t.data_ptr() for t in (y, cb, cr)), bsz, h, w,
-        *(t.data_ptr() for t in (qw, *luts)),
-        *(out[i].data_ptr() for i in range(5)),
-        y.device.index, torch.cuda.current_stream(y.device).cuda_stream,
-    )
-    _build.check(lib, "vlc_fused4", err)
+    out = _launch(4, y, cb, cr, qw, luts)
     launches += 1
     return tuple(out.unbind(0))
+
+
+def vlc_fused8(y, cb, cr, qw, luts: Luts):
+    """The same planes and qw as `vlc_fused4` ->
+    (words (w0, ..., w7), flens), each (B * H/16, 6 * W/16 * 8) int32: per
+    slice, the 8:1-fused slots of its blocks in stream order; w0..w7 hold
+    the u32 words (most significant first) of values of flens <= 256
+    bits."""
+    global launches8
+    check_planes(y, cb, cr, qw, luts)
+    if y.device.type == "cpu":
+        return vlc_fused8_plain(y, cb, cr, qw, luts)
+    planes = _launch(8, y, cb, cr, qw, luts).unbind(0)
+    launches8 += 1
+    return planes[:8], planes[8]

@@ -36,13 +36,19 @@ from ec504_imageencoder_tpu_torch.ops.dct import aan_dct
 from ec504_imageencoder_tpu_torch.ops.quant import quantize
 from ec504_imageencoder_tpu_torch.ops.vlc_device import block_streams_compat
 from ec504_imageencoder_tpu_torch.ops.zigzag import zigzag_scan
-from ec504_imageencoder_tpu_torch.shared import CROP_H, CROP_W, N_MBS, N_SLICES
 
 # kernel launches since the last reset, per entry point (launches for CPU
 # tensors excluded)
 launches_slots = 0
 launches_fused4 = 0
 
+# the compat geometry (the reference's models/encoder.py, which the port's
+# models/encoder.py re-exports): the C encoder encodes a 96-column x
+# 144-row crop as 6 column-band slices of 9 macroblocks
+CROP_W = 96
+CROP_H = 144
+N_SLICES = CROP_W // 16
+N_MBS = CROP_H // 16
 NB = N_MBS * 6  # 8x8 blocks per slice row
 
 _P = ctypes.c_void_p

@@ -7,14 +7,13 @@
   `_aan_f_rows_a` of `ops/pallas_vlc.py`.  int32 products wrap exactly as
   they do there.
 * `matmul_dct`: the f32 orthonormal DCT of the high-quality path
-  (quality >= 70).
+  (quality >= 70), on the basis `dct_matrix_f32`.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
-
-from ec504_imageencoder_tpu_torch.shared import dct_matrix_f32
 
 _C1 = 1004   # cos(pi/16)  << 10
 _S1 = 200    # sin(pi/16)  << 10
@@ -73,7 +72,16 @@ def aan_dct(blocks: torch.Tensor) -> torch.Tensor:
     return torch.stack(out, dim=-2)
 
 
-# orthonormal 8-point DCT-II basis, the reference's own f32 numbers
+def dct_matrix_f32() -> np.ndarray:
+    """Orthonormal 8-point DCT-II matrix D (f32): coeffs = D @ block @ D.T
+    (the reference's `ops/dct.py::dct_matrix_f32`, the same f32 numbers)."""
+    n = 8
+    k = np.arange(n)
+    d = np.cos((2 * k[None, :] + 1) * k[:, None] * np.pi / (2 * n))
+    d *= np.where(k[:, None] == 0, np.sqrt(1 / n), np.sqrt(2 / n))
+    return d.astype(np.float32)
+
+
 _D = torch.from_numpy(dct_matrix_f32())
 
 

@@ -59,9 +59,9 @@ def _escape_codes(run, al, sign):
 
 def _table(run, al, ac_code, ac_len):
     """(code, len) of the dense [run, |level|] LUT; len 0 off the table."""
-    in_range = (run <= tables.AC_MAX_RUN) & (al <= tables.AC_MAX_LEVEL)
-    li = run.clamp(0, tables.AC_MAX_RUN) * (tables.AC_MAX_LEVEL + 1) + al.clamp(
-        0, tables.AC_MAX_LEVEL
+    in_range = (run <= tables.MAX_RUN) & (al <= tables.MAX_AC_LEVEL)
+    li = run.clamp(0, tables.MAX_RUN) * (tables.MAX_AC_LEVEL + 1) + al.clamp(
+        0, tables.MAX_AC_LEVEL
     )
     t_code = ac_code.reshape(-1).to(_I64)[li]
     return t_code, torch.where(in_range, ac_len.reshape(-1).to(_I64)[li], 0)

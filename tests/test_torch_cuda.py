@@ -7,6 +7,10 @@ JAX):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
+The encoders on the card are held against the JAX package's numpy
+reference (`backend="numpy"`, host code that imports no JAX) and against
+the same encoders on the CPU (the twins).
+
 Tolerance: exact (0) everywhere: the kernels are integer arithmetic, and
 the f32 DCT in front of B3 is separate IEEE f32 multiplies and adds in the
 reference's numpy order, the same bits on the card as on the host.
@@ -16,6 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+from ec504_imageencoder_tpu.models.encoder import encode_compat as encode_compat_reference
+from ec504_imageencoder_tpu.models.mpeg1 import MPEG1IntraEncoder
 from ec504_imageencoder_tpu_torch.models import mpeg1
 from ec504_imageencoder_tpu_torch.models.encoder import encode_compat
 from ec504_imageencoder_tpu_torch.models.mpeg1 import TorchMPEG1IntraEncoder, f32_levels
@@ -29,11 +35,12 @@ from ec504_imageencoder_tpu_torch.ops import (
 )
 from ec504_imageencoder_tpu_torch.ops.cuda_vlc import Luts
 from ec504_imageencoder_tpu_torch.ops.dct import matmul_dct
-from ec504_imageencoder_tpu_torch.shared import (
-    MPEG1IntraEncoder,
-    encode_compat_reference,
-    scale_quantization_matrix,
-)
+from ec504_imageencoder_tpu_torch.utils.tables import scale_quantization_matrix
+
+
+def _cpu_encode(frames, **kw):
+    """The same encoder on the CPU (the kernels' twins)."""
+    return TorchMPEG1IntraEncoder(device="cpu", **kw).encode(frames)
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -96,6 +103,7 @@ def test_launch_counts_and_encoder_bytes(cuda):
     assert cuda_vlc.launches > 0 and cuda_pack.launches > 0
     want = MPEG1IntraEncoder(quality=50, max_slice_bytes=2560, backend="numpy").encode(frames)
     assert got == want
+    assert got == _cpu_encode(frames, quality=50, max_slice_bytes=2560)
 
 
 def test_kernel_wrappers_reject_bad_input(cuda):
@@ -153,10 +161,12 @@ def test_high_quality_and_compat_encoders(cuda, tmp_path):
     got = TorchMPEG1IntraEncoder(quality=85, device=cuda).encode(frames)
     assert cuda_vlc_levels.launches > 0 and cuda_pack.launches > 0 and cuda_vlc.launches == 0
     assert got == MPEG1IntraEncoder(quality=85, backend="numpy").encode(frames)
+    assert got == _cpu_encode(frames, quality=85)
 
     frames = rng.integers(0, 256, (3, 150, 101, 3), dtype=np.uint8)
     cuda_vlc_compat.launches_fused4 = cuda_vlc_compat.launches_slots = 0
     want = encode_compat_reference(frames, 12, backend="numpy")
+    assert encode_compat(frames, 12, device="cpu") == want
     assert encode_compat(frames, 12, device=cuda) == want
     assert encode_compat(frames, 12, device=cuda, debug_checks=True) == want
     assert cuda_vlc_compat.launches_fused4 == cuda_vlc_compat.launches_slots == 1
@@ -248,7 +258,9 @@ def test_debug_checks_encoder(cuda, monkeypatch):
         cuda_vlc.launches = cuda_vlc_levels.launches = cuda_vlc_raw.launches = 0
         cuda_lut.launches = cuda_pack.launches = cuda_pack.launches_checked = 0
         enc = TorchMPEG1IntraEncoder(quality=quality, debug_checks=True, device=cuda)
-        assert enc.encode(frames) == MPEG1IntraEncoder(quality=quality, backend="numpy").encode(frames)
+        got = enc.encode(frames)
+        assert got == MPEG1IntraEncoder(quality=quality, backend="numpy").encode(frames)
+        assert got == _cpu_encode(frames, quality=quality)
         assert kernel.launches > 0 and cuda_pack.launches_checked > 0
         assert cuda_vlc.launches == cuda_vlc_levels.launches == cuda_pack.launches == 0
 
@@ -260,3 +272,57 @@ def test_debug_checks_encoder(cuda, monkeypatch):
     monkeypatch.setattr(mpeg1, "vlc_raw", corrupt)
     with pytest.raises(RuntimeError, match="invariant violations"):
         TorchMPEG1IntraEncoder(quality=50, debug_checks=True, device=cuda).encode(frames)
+
+
+# ---- the 8:1-fusion path: B6b and B6c -------------------------------------
+
+@pytest.mark.parametrize("quality", [5, 50, 95])
+@pytest.mark.parametrize("shape", [(2, 32, 48), (1, 48, 4096), (3, 16, 16)])
+def test_fused8_kernel_matches_twin(cuda, quality, shape):
+    rng = np.random.default_rng(quality * 13 + shape[2])
+    core = TorchMPEG1IntraEncoder(quality=quality, dct_impl="aan", device=cuda).core
+    planes = _planes(rng, *shape, cuda)
+    words, flens = cuda_vlc.vlc_fused8(*planes, core.qw, core.luts())
+    want_w, want_l = cuda_vlc.vlc_fused8_plain(*planes, core.qw, core.luts())
+    assert torch.equal(flens, want_l)
+    for g, w in zip(words, want_w):
+        assert torch.equal(g, w)
+
+
+def _fused8_slots(rng, n, kf, dev):
+    """(n, kf) random 8-word slots of up to 256 bits, each value masked to
+    its length (w0 the most significant word): ([w0, ..., w7], flens)."""
+    flens = rng.integers(0, 257, (n, kf))
+    flens[rng.random((n, kf)) < 0.3] = 0
+    words = rng.integers(0, 1 << 32, (8, n, kf), dtype=np.uint64)
+    for i in range(8):
+        keep = np.clip(flens - 32 * (7 - i), 0, 32).astype(np.uint64)
+        words[i] &= (np.uint64(1) << keep) - np.uint64(1)
+    ws = [torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(dev) for w in words]
+    return ws, torch.from_numpy(flens.astype(np.int32)).to(dev)
+
+
+@pytest.mark.parametrize("max_words", [1000, 7, 342528 // 4])
+def test_pack8_kernel_matches_twin(cuda, max_words):
+    """Random values of up to 256 bits; 7 words overflows every slice,
+    342528 B exceeds shared memory and takes the global-memory path."""
+    words, flens = _fused8_slots(np.random.default_rng(max_words), 5, 1500, cuda)
+    seg, nbits = cuda_pack.pack_fused8(words, flens, max_words, bit_offset=38)
+    seg_t, nbits_t = cuda_pack.pack_fused8_plain(words, flens, max_words, bit_offset=38)
+    assert torch.equal(nbits, nbits_t)
+    assert torch.equal(seg, seg_t)
+
+
+def test_fuse8_encoder(cuda):
+    """fuse=8 on the card: the numpy reference's bytes (and the CPU
+    encoder's), through B6b and B6c, never B1 or the unchecked B2; a
+    forced regrow lands."""
+    frames = np.random.default_rng(8).integers(0, 256, (2, 40, 56, 3), dtype=np.uint8)
+    cuda_vlc.launches = cuda_pack.launches = cuda_vlc.launches8 = cuda_pack.launches8 = 0
+    enc = TorchMPEG1IntraEncoder(quality=50, fuse=8, max_slice_bytes=2560, device=cuda)
+    got = enc.encode(frames)
+    want = MPEG1IntraEncoder(quality=50, max_slice_bytes=2560, backend="numpy").encode(frames)
+    assert got == want
+    assert got == _cpu_encode(frames, quality=50, max_slice_bytes=2560)
+    assert cuda_vlc.launches8 > 0 and cuda_pack.launches8 > 0
+    assert cuda_vlc.launches == cuda_pack.launches == 0

@@ -205,3 +205,59 @@ def test_debug_checks_bytes_equal(odd_frames, quality):
     assert dbg.encode(odd_frames) == prod.encode(odd_frames) == want
     want = ref.encode_from_planes(*planes)
     assert dbg.encode_from_planes(*planes) == prod.encode_from_planes(*planes) == want
+
+
+# ---- fuse=8: the 8:1-fusion route (B6b, B6c) -------------------------------
+
+@pytest.mark.parametrize("quality", [5, 50, 69])
+def test_fuse8_matches_numpy(odd_frames, quality):
+    """fuse=8 (the reference's EC504_FUSE=8 route) on the CPU: the numpy
+    reference's bytes for both intakes, odd sizes included."""
+    ref = MPEG1IntraEncoder(quality=quality, backend="numpy")
+    port = TorchMPEG1IntraEncoder(quality=quality, fuse=8, device="cpu")
+    assert port.fuse == 8 and port.core.fuse == 8 and port.dct_impl == "aan"
+    assert port.encode(odd_frames) == ref.encode(odd_frames)
+    planes = _planes(odd_frames)
+    assert port.encode_from_planes(*planes) == ref.encode_from_planes(*planes)
+
+
+def test_fuse8_forced_regrow_matches_numpy():
+    frames = np.random.default_rng(5).integers(0, 256, (1, 16, 512, 3), dtype=np.uint8)
+    ref = MPEG1IntraEncoder(quality=50, max_slice_bytes=2560, backend="numpy")
+    port = TorchMPEG1IntraEncoder(quality=50, max_slice_bytes=2560, fuse=8, device="cpu")
+    assert port.encode(frames) == ref.encode(frames)
+    assert port.max_slice_bytes > 2560 and port.max_slice_bytes == ref.max_slice_bytes
+
+
+@pytest.mark.parametrize("quality,fuse", [(50, 4), (50, 8), (85, 4)],
+                         ids=["q50-fuse4", "q50-fuse8", "q85-f32"])
+def test_full_width_1080p(quality, fuse):
+    """One 1080 x 1920 frame (full-width slices of 720 blocks) on each
+    route: the default AAN route (fuse 4), the 8:1-fusion route and the
+    f32 DCT, whose bytes depend on numpy's order for breaking f32 ties."""
+    rng = np.random.default_rng(1080)
+    yy, xx = np.mgrid[:1080, :1920]
+    frame = ((yy[..., None] * (1, 2, 3) + xx[..., None] * (3, 1, 2)) % 256).astype(np.uint8)
+    frame[::7] = rng.integers(0, 256, frame[::7].shape, dtype=np.uint8)
+    frames = frame[None]
+    want = MPEG1IntraEncoder(quality=quality, backend="numpy").encode(frames)
+    port = TorchMPEG1IntraEncoder(quality=quality, fuse=fuse, device="cpu")
+    assert port.dct_impl == ("f32" if quality >= 70 else "aan")
+    assert port.encode(frames) == want
+
+
+@pytest.mark.parametrize("kw", [{"debug_checks": True}, {"dct_impl": "f32"}],
+                         ids=["debug_checks", "f32"])
+def test_fuse8_leaves_other_routes_alone(odd_frames, kw):
+    """Under debug_checks the sanitizer's routes run, and the f32 DCT always
+    fuses 4:1: fuse=8 gives fuse=4's bytes there."""
+    want = TorchMPEG1IntraEncoder(quality=50, device="cpu", **kw).encode(odd_frames)
+    assert TorchMPEG1IntraEncoder(quality=50, fuse=8, device="cpu", **kw).encode(odd_frames) == want
+
+
+def test_fuse_must_be_4_or_8():
+    for fuse in (3, 16, "8"):
+        with pytest.raises(ValueError, match="fuse"):
+            TorchMPEG1IntraEncoder(quality=50, fuse=fuse, device="cpu")
+    port = TorchMPEG1IntraEncoder.from_reference(MPEG1IntraEncoder(backend="numpy"), "cpu", fuse=8)
+    assert port.fuse == 8

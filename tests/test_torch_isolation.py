@@ -1,35 +1,42 @@
-"""The port never imports JAX, and chip_smoke.py has no CPU path.
+"""The port never imports JAX nor the JAX package, and chip_smoke.py has
+no CPU path.
 
-Both run in subprocesses: tests/conftest.py imports JAX into this one.
+The runs are subprocesses: tests/conftest.py imports JAX into this one.
 """
 
+import ast
 import shutil
 import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "ec504_imageencoder_tpu_torch"
+REFERENCE = "ec504_imageencoder_tpu"
 
 _NO_JAX = """
+import importlib
+import pkgutil
 import sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
 sys.modules["jaxlib"] = None
+sys.modules["ec504_imageencoder_tpu"] = None  # and so does the JAX package
 import numpy as np
+import ec504_imageencoder_tpu_torch as port
+names = [m.name for m in pkgutil.walk_packages(port.__path__, "ec504_imageencoder_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+assert "ec504_imageencoder_tpu_torch.syntax.headers" in names
 import ec504_imageencoder_tpu_torch.models.encoder as c
 import ec504_imageencoder_tpu_torch.models.mpeg1 as m
-import ec504_imageencoder_tpu_torch.ops._build
-import ec504_imageencoder_tpu_torch.ops.cuda_lut
-import ec504_imageencoder_tpu_torch.ops.cuda_pack
-import ec504_imageencoder_tpu_torch.ops.cuda_vlc
-import ec504_imageencoder_tpu_torch.ops.cuda_vlc_compat
-import ec504_imageencoder_tpu_torch.ops.cuda_vlc_levels
-import ec504_imageencoder_tpu_torch.ops.cuda_vlc_raw
-import ec504_imageencoder_tpu_torch.shared
 frames = np.random.default_rng(0).integers(0, 256, (2, 24, 40, 3), dtype=np.uint8)
 enc = m.TorchMPEG1IntraEncoder(quality=50, device="cpu")
 es = enc.encode(frames)
 es2 = enc.encode_from_planes(frames[..., 0], frames[:, ::2, ::2, 1], frames[:, ::2, ::2, 2])
 assert es[:4] == es2[:4] == bytes([0, 0, 1, 0xB3])
+assert m.TorchMPEG1IntraEncoder(quality=50, fuse=8, device="cpu").encode(frames) == es
 hq = m.TorchMPEG1IntraEncoder(quality=85, device="cpu")
 assert hq.dct_impl == "f32" and hq.encode(frames)[:4] == es[:4]
 for q in (50, 85):
@@ -40,9 +47,11 @@ mpeg, dumps = c.encode_compat(np.zeros((2, 144, 96, 3), np.uint8), 12, device="c
 assert mpeg[:4] == bytes([0, 0, 1, 0xBA]) and len(dumps) == 2
 mpeg2, _ = c.encode_compat(np.zeros((2, 144, 96, 3), np.uint8), 12, device="cpu", debug_checks=True)
 assert mpeg2 == mpeg
-assert not any(k == "jax" or k.startswith(("jax.", "jaxlib")) for k in sys.modules
-               if sys.modules[k] is not None)
-print("OK", len(es), len(es2))
+loaded = [k for k in sys.modules if sys.modules[k] is not None]
+assert not any(k == "jax" or k.startswith(("jax.", "jaxlib")) for k in loaded)
+assert not any(k == "ec504_imageencoder_tpu" or k.startswith("ec504_imageencoder_tpu.")
+               for k in loaded)
+print("OK", len(names), len(es), len(es2))
 """
 
 
@@ -72,3 +81,25 @@ def test_chip_smoke_needs_cuda():
     proc = _run(["chip_smoke.py"], ROOT, env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""})
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def _imported_modules(path: Path):
+    """(line, module) of every import statement in the file at `path`."""
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from ((node.lineno, a.name) for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.lineno, node.module
+
+
+_SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _SOURCES, ids=[str(p.relative_to(ROOT)) for p in _SOURCES])
+def test_no_import_of_the_jax_package(path):
+    """No module of the port, and not chip_smoke.py, imports the JAX
+    package or anything in it (lazy imports inside functions included)."""
+    bad = [(line, mod) for line, mod in _imported_modules(path)
+           if mod == REFERENCE or mod.startswith(REFERENCE + ".")
+           or mod == "jax" or mod.startswith("jax.")]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"

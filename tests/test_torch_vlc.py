@@ -4,6 +4,7 @@ Each wrapper on CPU tensors runs its twin; the reference is the Pallas
 kernel in interpret mode, fed the same input in its own layout:
 
 * B1 `vlc_fused4`: `vlc_fused_slots_from_blocks_tpu` + `fused_stack_to_stream`;
+* B6b `vlc_fused8`: `vlc_fused8_slots_from_blocks_tpu` + `fused8_stack_to_stream`;
 * B3 `vlc_levels4`: `vlc_slots_tpu` + `fuse_slots_streamwise`;
 * B4a `vlc_compat_slots`: `vlc_compat_slots_from_blocks_tpu`;
 * B4b `vlc_compat_fused4`: `vlc_compat_fused_slots_from_blocks_tpu` +
@@ -27,10 +28,12 @@ from ec504_imageencoder_tpu.models.mpeg1 import _dc_predictors as ref_dc_predict
 from ec504_imageencoder_tpu.ops.dct import aan_dct as ref_aan_dct
 from ec504_imageencoder_tpu.ops.pallas_vlc import (
     fuse_slots_streamwise,
+    fused8_stack_to_stream,
     fused_stack_to_stream,
     vlc_compat_fused_slots_from_blocks_tpu,
     vlc_compat_slots_from_blocks_tpu,
     vlc_from_blocks_tpu,
+    vlc_fused8_slots_from_blocks_tpu,
     vlc_fused_slots_from_blocks_tpu,
     vlc_slots_tpu,
 )
@@ -106,6 +109,30 @@ def test_twin_matches_pallas_kernel(quality, frames, height, width, noise):
         assert int(lvl.abs().max()) >= 128
 
 
+@pytest.mark.parametrize("quality", [5, 50, 69, 95])
+@pytest.mark.parametrize("frames,height,width,noise", CASES)
+def test_fused8_twin_matches_pallas_kernel(quality, frames, height, width, noise):
+    """B6b's twin (B1's twin, then `fuse8`) against
+    `vlc_fused8_slots_from_blocks_tpu(interpret=True)` + `fused8_stack_to_stream`:
+    8 word planes and the lengths (<= 256), slot for slot."""
+    rng = np.random.default_rng(quality * 1000 + height * 10 + width + noise)
+    y, cb, cr = pad_planes_to_macroblocks(*_planes(rng, frames, height, width, noise))
+    intra_q, qscale = quality_to_quant(quality)
+    qw = (intra_q * qscale).astype(np.int32)
+
+    vstack, flens = vlc_fused8_slots_from_blocks_tpu(_px64_blocks(y, cb, cr), qw, interpret=True)
+    want_w, want_l = fused8_stack_to_stream(vstack, flens)
+    planes = [torch.from_numpy(p) for p in (y, cb, cr)]
+    words, got_l = cuda_vlc.vlc_fused8(*planes, torch.from_numpy(qw), Luts.default("cpu"))
+    assert len(words) == 8 and got_l.dtype == torch.int32
+    assert np.array_equal(got_l.numpy(), np.asarray(want_l))
+    for g, w in zip(words, want_w):
+        assert g.dtype == torch.int32
+        assert np.array_equal(g.numpy(), np.asarray(w).view(np.int32))
+    if noise and quality == 95:
+        assert int(got_l.max()) > 128  # values that span more than four words
+
+
 def test_wrapper_checks_inputs():
     y = torch.zeros((1, 32, 32), dtype=torch.uint8)
     c = torch.zeros((1, 16, 16), dtype=torch.uint8)
@@ -119,6 +146,10 @@ def test_wrapper_checks_inputs():
         cuda_vlc.vlc_fused4(y.int(), c, c, qw, luts)             # dtype
     with pytest.raises(TypeError):
         cuda_vlc.vlc_fused4(y, c, c, qw.long(), luts)
+    with pytest.raises(ValueError):
+        cuda_vlc.vlc_fused8(y[:, :30], c, c, qw, luts)          # not padded
+    with pytest.raises(TypeError):
+        cuda_vlc.vlc_fused8(y, c, c.int(), qw, luts)
 
 
 # ---- B6a: planes -> raw slots (the sanitizer's integer-DCT route) --------
