@@ -70,7 +70,20 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    encode() and encode_from_planes() on the 16 x 1080p frames and a
    forced regrow, byte-equal to the CPU bytes of phase 4; B6b and B6c
    launch, B1 and the unchecked B2 do not;
-18. times: B6b and B6c against their twins, fuse=8 frames/s.
+18. times: B6b and B6c against their twins, fuse=8 frames/s;
+19. the raw-code pack kernels K1 (pack_raw), K2 (pack_pairs), K3
+   (pack_windows) and K4 (pack_split) against their twins on the raw
+   slots of the generic emission (`EncodeCore.raw_slots`) of the 16 x
+   1080p planes at q=50 and of the 1000 x 1400 noise at q=100 (escapes),
+   each with the auto buffer, a 2,560 B buffer that overflows and a
+   342,528 B one (global memory for K1 and K2): exact, and equal to B2 on
+   the same slots fused 4:1;
+20. the generic route, TorchMPEG1IntraEncoder(pack=...) for "pallas1",
+   "pallas3", "fused" and "fused2w": encode(), encode_from_planes() and a
+   forced regrow at q=50 byte-equal to the CPU bytes of phase 4, and
+   pack="fused" at q=85 to those of phase 8; B5 and the chosen kernel
+   launch, B1, B2, B3 and B6a do not;
+21. times: K1-K4 against their twins, and the routes' frames/s.
 
 The line before the last is a JSON summary of the kernels (time, twin
 time, least time the card could take and what sets it, the time of one
@@ -81,6 +94,7 @@ line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import hashlib
+import itertools
 import json
 import subprocess
 import sys
@@ -232,16 +246,18 @@ def main() -> int:
 
     from ec504_imageencoder_tpu_torch.models import mpeg1
     from ec504_imageencoder_tpu_torch.models.encoder import encode_compat
-    from ec504_imageencoder_tpu_torch.models.mpeg1 import TorchMPEG1IntraEncoder, f32_levels
+    from ec504_imageencoder_tpu_torch.models.mpeg1 import TorchMPEG1IntraEncoder, plane_levels
     from ec504_imageencoder_tpu_torch.ops import (
         _build,
         cuda_lut,
         cuda_pack,
+        cuda_pack_split,
         cuda_vlc,
         cuda_vlc_compat,
         cuda_vlc_levels,
         cuda_vlc_raw,
     )
+    from ec504_imageencoder_tpu_torch.ops.bitpack import fuse4
     from ec504_imageencoder_tpu_torch.ops.color import (
         rgb_to_ycbcr,
         rgb_to_ycbcr_exact,
@@ -256,6 +272,8 @@ def main() -> int:
         cuda_vlc_compat.launches_slots = cuda_vlc_compat.launches_fused4 = 0
         cuda_vlc_raw.launches = cuda_lut.launches = cuda_pack.launches_checked = 0
         cuda_vlc.launches8 = cuda_pack.launches8 = 0
+        cuda_pack.launches_raw = cuda_pack.launches_pairs = 0
+        cuda_pack_split.launches_windows = cuda_pack_split.launches_split = 0
 
     def read_launches():
         return {"vlc_fused4": cuda_vlc.launches, "pack_fused4": cuda_pack.launches,
@@ -264,10 +282,21 @@ def main() -> int:
                 "vlc_compat_fused4": cuda_vlc_compat.launches_fused4,
                 "vlc_raw": cuda_vlc_raw.launches, "lut_lookup": cuda_lut.launches,
                 "pack_fused4_checked": cuda_pack.launches_checked,
-                "vlc_fused8": cuda_vlc.launches8, "pack_fused8": cuda_pack.launches8}
+                "vlc_fused8": cuda_vlc.launches8, "pack_fused8": cuda_pack.launches8,
+                "pack_raw": cuda_pack.launches_raw, "pack_pairs": cuda_pack.launches_pairs,
+                "pack_windows": cuda_pack_split.launches_windows,
+                "pack_split": cuda_pack_split.launches_split}
 
     sanitizer_kernels = ("vlc_raw", "lut_lookup", "pack_fused4_checked")
     fuse8_kernels = ("vlc_fused8", "pack_fused8")
+    # pack= value of the generic route -> (its kernel, wrapper, plain twin)
+    raw_packs = {
+        "pallas1": ("pack_raw", cuda_pack.pack_raw, cuda_pack.pack_raw_plain),
+        "pallas3": ("pack_windows", cuda_pack_split.pack_windows, cuda_pack.pack_raw_plain),
+        "fused": ("pack_split", cuda_pack_split.pack_split, cuda_pack.pack_raw_plain),
+        "fused2w": ("pack_pairs", cuda_pack.pack_pairs, cuda_pack.pack_pairs_plain),
+    }
+    raw_pack_kernels = tuple(v[0] for v in raw_packs.values())
 
     dev = torch.device("cuda", 0)
     gpu = _gpu_line()
@@ -279,8 +308,9 @@ def main() -> int:
     # ---- 1. build -------------------------------------------------------
     t0 = time.perf_counter()
     _build.build(["vlc_fused4", "pack_fused4", "vlc_levels4", "vlc_compat", "vlc_raw",
-                  "lut_lookup"])
-    for mod in (cuda_vlc, cuda_pack, cuda_vlc_levels, cuda_vlc_compat, cuda_vlc_raw, cuda_lut):
+                  "lut_lookup", "pack_split"])
+    for mod in (cuda_vlc, cuda_pack, cuda_vlc_levels, cuda_vlc_compat, cuda_vlc_raw, cuda_lut,
+                cuda_pack_split):
         mod.load_kernel()
     cold_build_s = time.perf_counter() - t0
     for name, (secs, log) in sorted(_build.build_info.items()):
@@ -365,7 +395,7 @@ def main() -> int:
     _check_launches(f"q={QUALITY} path (encode + encode_from_planes + regrow encode, "
                     f"{main_s:.2f} s)", launches, ("vlc_fused4", "pack_fused4"),
                     ("vlc_levels4", "vlc_compat_slots", "vlc_compat_fused4", *sanitizer_kernels,
-                     *fuse8_kernels))
+                     *fuse8_kernels, *raw_pack_kernels))
     if regrow.max_slice_bytes <= 2560:
         raise AssertionError("the forced-regrow run did not regrow")
     print(f"regrow: 2560 B -> {regrow.max_slice_bytes} B per slice")
@@ -414,9 +444,9 @@ def main() -> int:
     hq = TorchMPEG1IntraEncoder(quality=HQ_QUALITY, device=dev)
     if hq.dct_impl != "f32":
         raise AssertionError(f"dct_impl 'auto' at q={HQ_QUALITY} did not pick f32")
-    hq_in = f32_levels(*planes_hd, hq.core.qw, hq.core.zigzag)
+    hq_in = plane_levels(*planes_hd, hq.core.qw, hq.core.zigzag)
     q100 = TorchMPEG1IntraEncoder(quality=100, device=dev).core
-    noise_in = f32_levels(*planes_odd, q100.qw, q100.zigzag)
+    noise_in = plane_levels(*planes_odd, q100.qw, q100.zigzag)
     if int(noise_in[0][..., 1:].abs().max()) < 128:
         raise AssertionError("the q=100 noise levels hold no 28-bit escape")
     b3_err = max(
@@ -452,7 +482,7 @@ def main() -> int:
     hq_launches = read_launches()
     _check_launches(f"q={HQ_QUALITY} path (encode + encode_from_planes, {hq_s:.2f} s)",
                     hq_launches, ("vlc_levels4", "pack_fused4"),
-                    ("vlc_fused4", *sanitizer_kernels, *fuse8_kernels))
+                    ("vlc_fused4", *sanitizer_kernels, *fuse8_kernels, *raw_pack_kernels))
 
     t0 = time.perf_counter()
     cpu_hq_rgb = TorchMPEG1IntraEncoder(quality=HQ_QUALITY, device="cpu").encode(frames)
@@ -638,7 +668,8 @@ def main() -> int:
         other = "lut_lookup" if must == "vlc_raw" else "vlc_raw"
         _check_launches(f"q={q} debug_checks path ({dbg.dct_impl}; encode + encode_from_planes, "
                         f"{debug_s:.2f} s)", debug_counts[q], (must, "pack_fused4_checked"),
-                        ("vlc_fused4", "vlc_levels4", "pack_fused4", other, *fuse8_kernels))
+                        ("vlc_fused4", "vlc_levels4", "pack_fused4", other, *fuse8_kernels,
+                         *raw_pack_kernels))
         _check_equal(f"q={q} debug_checks encode", d_rgb, cpu_pair[0])
         _check_equal(f"q={q} debug_checks encode_from_planes", d_planes, cpu_pair[1])
     debug_counts["sum"] = {k: debug_counts[QUALITY][k] + debug_counts[HQ_QUALITY][k]
@@ -751,7 +782,7 @@ def main() -> int:
     _check_launches(f"q={QUALITY} fuse=8 path (encode + encode_from_planes + regrow encode, "
                     f"{f8_s:.2f} s)", f8_launches, fuse8_kernels,
                     ("vlc_fused4", "pack_fused4", "vlc_levels4", "vlc_compat_slots",
-                     "vlc_compat_fused4", *sanitizer_kernels))
+                     "vlc_compat_fused4", *sanitizer_kernels, *raw_pack_kernels))
     if regrow8.max_slice_bytes <= 2560:
         raise AssertionError("the fuse=8 forced-regrow run did not regrow")
     print(f"fuse=8 regrow: 2560 B -> {regrow8.max_slice_bytes} B per slice")
@@ -783,6 +814,106 @@ def main() -> int:
         print(f"fuse=8 {label} 16x1080p q={QUALITY}: {fps:.2f} frames/s "
               f"({ms:.2f} ms per batch) {tag}")
 
+    # ---- 19. K1-K4 against their twins ------------------------------------
+    del w8_hd, fl8_hd, slots8
+    torch.cuda.empty_cache()
+    raw = {f"16x1080p q={QUALITY}": core.raw_slots(*planes_hd),
+           f"2x{oh}x{ow} noise q=100": q100.raw_slots(*planes_odd)}
+    raw_err = dict.fromkeys(raw_pack_kernels, 0)
+    for (sname, (codes, lens)), (bname, mw, must_overflow) in itertools.product(
+            raw.items(), (("auto buffer", msb_hd // 4, False), ("2560 B buffer", 640, True),
+                          ("342528 B buffer", 342528 // 4, False))):
+        want = cuda_pack.pack_raw_plain(codes, lens, mw, bit_offset=38)
+        via_b2 = cuda_pack.pack_fused4(*(cuda_vlc.to_i32_bits(t) for t in fuse4(codes, lens)),
+                                       mw, bit_offset=38)
+        if _max_abs_err(torch, via_b2, want) != 0:
+            raise AssertionError(f"B2 on the fused raw slots differs from the raw twin, {sname}")
+        over = int((want[1] > 32 * mw).sum())
+        if must_overflow and over == 0:
+            raise AssertionError(f"{sname}, {bname}: no slice overflowed")
+        for name, kernel, twin in raw_packs.values():
+            got = kernel(codes, lens, mw, bit_offset=38)
+            twin_out = want if twin is cuda_pack.pack_raw_plain else twin(codes, lens, mw, bit_offset=38)
+            torch.cuda.synchronize()
+            err = _max_abs_err(torch, got, twin_out)
+            raw_err[name] = max(raw_err[name], err)
+            same_b2 = _max_abs_err(torch, got, via_b2) == 0
+            print(f"{name} vs twin, {sname}, {bname}: {lens.shape[0]} slices of {lens.shape[1]} "
+                  f"slots, {over} over the buffer, max_abs_err {err}, equal to B2 on the 4:1 "
+                  f"fusion {same_b2}")
+            if err != 0 or not same_b2:
+                raise AssertionError(f"{name} disagrees with its twin or B2, {sname}, {bname}")
+        del want, via_b2, got, twin_out
+    codes_hd, lens_hd = raw[f"16x1080p q={QUALITY}"]
+    del raw
+    torch.cuda.empty_cache()
+
+    # ---- 20. the generic route: pack= ------------------------------------
+    route_counts = {}
+    others = ("vlc_fused4", "pack_fused4", "vlc_levels4", "vlc_raw", "pack_fused4_checked",
+              "vlc_compat_slots", "vlc_compat_fused4", *fuse8_kernels)
+    for pack, (name, _, _) in raw_packs.items():
+        reset_launches()
+        t0 = time.perf_counter()
+        r_rgb = TorchMPEG1IntraEncoder(quality=QUALITY, pack=pack, device=dev).encode(frames)
+        r_planes = TorchMPEG1IntraEncoder(quality=QUALITY, pack=pack, device=dev).encode_from_planes(
+            jy, jcb, jcr)
+        r_grow = TorchMPEG1IntraEncoder(quality=QUALITY, pack=pack, max_slice_bytes=2560,
+                                        device=dev)
+        r_regrow = r_grow.encode(regrow_frames)
+        r_s = time.perf_counter() - t0
+        route_counts[name] = read_launches()
+        _check_launches(f"q={QUALITY} pack={pack!r} path (encode + encode_from_planes + regrow "
+                        f"encode, {r_s:.2f} s)", route_counts[name], ("lut_lookup", name),
+                        (*others, *(k for k in raw_pack_kernels if k != name)))
+        if r_grow.max_slice_bytes <= 2560:
+            raise AssertionError(f"the pack={pack!r} forced-regrow run did not regrow")
+        print(f"pack={pack!r} regrow: 2560 B -> {r_grow.max_slice_bytes} B per slice")
+        for label, got, want in (("encode", r_rgb, cpu_rgb),
+                                 ("encode_from_planes", r_planes, cpu_planes),
+                                 ("regrow encode", r_regrow, cpu_regrow)):
+            _check_equal(f"pack={pack!r} {label}", got, want)
+    reset_launches()
+    hq_route = TorchMPEG1IntraEncoder(quality=HQ_QUALITY, pack="fused", device=dev)
+    _check_equal(f"q={HQ_QUALITY} pack='fused' encode", hq_route.encode(frames), cpu_hq_rgb)
+    _check_equal(f"q={HQ_QUALITY} pack='fused' encode_from_planes",
+                 hq_route.encode_from_planes(jy, jcb, jcr), cpu_hq_planes)
+    _check_launches(f"q={HQ_QUALITY} pack='fused' path ({hq_route.dct_impl})", read_launches(),
+                    ("lut_lookup", "pack_split"), (*others, "pack_raw", "pack_windows", "pack_pairs"))
+    del hq_route
+
+    # ---- 21. steady-state times, the generic route ------------------------
+    n_raw = lens_hd.numel()
+    for name, kernel, twin in raw_packs.values():
+        times[name] = (
+            _event_ms(torch, lambda: kernel(codes_hd, lens_hd, mw_hd), 20),
+            _event_ms(torch, lambda: twin(codes_hd, lens_hd, mw_hd), 3),
+        )
+        # codes and lengths read once, the slice buffers and bit counts written
+        work[name] = (8 * n_raw + n_rows_hd * (msb_hd + 4), OPS_PACK_SLOT * n_raw)
+        print(f"{name} at 16x1080p q={QUALITY} ({n_raw} raw slots): kernel {times[name][0]:.4f} "
+              f"ms, plain twin {times[name][1]:.4f} ms {tag}")
+    # K3 and K4 include the int32 prefix sum of the lengths (PyTorch)
+    ms = _event_ms(torch, lambda: torch.cumsum(lens_hd, dim=1, dtype=torch.int32), 20)
+    print(f"their cumsum of the lengths at 16x1080p: {ms:.4f} ms {tag}")
+    # one frame: 68 slices for the card's 132 SMs, where spreading a slice
+    # over many blocks (K3, K4) could pay
+    mbh_hd = planes_hd[0].shape[1] // 16
+    one = (codes_hd[:mbh_hd], lens_hd[:mbh_hd])
+    for name, kernel, _ in raw_packs.values():
+        ms = _event_ms(torch, lambda: kernel(*one, mw_hd), 20)
+        print(f"{name} at 1x1080p ({one[1].shape[0]} slices): kernel {ms:.4f} ms {tag}")
+    del codes_hd, lens_hd, one
+    torch.cuda.empty_cache()
+    for pack in raw_packs:
+        enc_r = TorchMPEG1IntraEncoder(quality=QUALITY, pack=pack, device=dev)
+        for label, fn in (("encode", lambda: enc_r.encode(frames)),
+                          ("encode_from_planes", lambda: enc_r.encode_from_planes(jy, jcb, jcr))):
+            fps, ms = _frames_per_s(torch, fn, BATCH, 3)
+            print(f"pack={pack!r} {label} 16x1080p q={QUALITY}: {fps:.2f} frames/s "
+                  f"({ms:.2f} ms per batch) {tag}")
+    print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {tag}")
+
     src = "ec504_imageencoder_tpu_torch/csrc/"
     rows = [
         ("vlc_fused4", "vlc_fused4.cu", "ec504_imageencoder_tpu/ops/pallas_vlc.py:556",
@@ -805,6 +936,17 @@ def main() -> int:
          f8_launches, b6b_err),
         ("pack_fused8", "pack_fused4.cu", "ec504_imageencoder_tpu/ops/pallas_pack.py:980",
          f8_launches, b6c_err),
+        # B6d and B6e: one function, one kernel (K1)
+        ("pack_raw", "pack_fused4.cu", "ec504_imageencoder_tpu/ops/pallas_pack.py:65",
+         route_counts["pack_raw"], raw_err["pack_raw"]),
+        ("pack_raw", "pack_fused4.cu", "ec504_imageencoder_tpu/ops/pallas_pack.py:189",
+         route_counts["pack_raw"], raw_err["pack_raw"]),
+        ("pack_windows", "pack_split.cu", "ec504_imageencoder_tpu/ops/pallas_pack.py:288",
+         route_counts["pack_windows"], raw_err["pack_windows"]),
+        ("pack_split", "pack_split.cu", "ec504_imageencoder_tpu/ops/pallas_pack.py:416",
+         route_counts["pack_split"], raw_err["pack_split"]),
+        ("pack_pairs", "pack_fused4.cu", "ec504_imageencoder_tpu/ops/pallas_pack.py:610",
+         route_counts["pack_pairs"], raw_err["pack_pairs"]),
     ]
     kernels = []
     for name, cu, replaces, counts, err in rows:

@@ -1,5 +1,6 @@
 // pack_fused4: 4:1-fused VLC slots -> big-endian slice bytes + bit counts
-// (kernel B2), and the same for 8:1-fused slots (kernel B6c).
+// (kernel B2), the same for 8:1-fused slots (kernel B6c), for raw codes
+// (K1) and for raw codes fused 2:1 as they are loaded (K2).
 //
 // B2 replaces the Pallas kernel ec504_imageencoder_tpu/ops/pallas_pack.py
 // `_fused4_kernel` as launched by `pack_words_fused4_core(..., emit_be=True)`,
@@ -16,6 +17,19 @@
 // words, placed from a 288-bit window.  It has none of the TPU kernel's
 // limits on max_words (a multiple of 128, at least 384): those were its
 // tiling.
+//
+// K1 (kWords = 1, pack_raw_launch) replaces two Pallas kernels that compute
+// `bitpack.pack_words` of raw codes of <= 32 bits: `_pack_kernel`
+// (`pack_words_pallas`, the reference's EC504_PACK=pallas1) and
+// `_pack2_kernel` (`pack_words_pallas2`, no caller).  They differ only in
+// their MXU formulation: f32 half-words against a one-hot window, or bf16
+// byte planes with the carry words added at the same window position and
+// shifted afterwards; neither has a meaning on a GPU, where a code is two
+// shifted words ORed in place.  K2 (Pairs, pack_pairs_launch) replaces
+// `_fused2w_kernel` (`pack_words_fused2w`, EC504_PACK=fused2w) and the
+// `_fuse2_32` in front of it: slot i of a row is the raw pair (2i, 2i+1),
+// fused in registers as it is loaded (V = c1 2^l2 | c2, <= 64 bits) and
+// placed from a 96-bit window.
 //
 // What bounds it on the H100: bytes.  Per slice it reads 4 (kWords + 1) B
 // per fused slot (230 KB at 1080p for either fusion) and writes the slice
@@ -50,6 +64,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 512;
@@ -64,11 +80,52 @@ __device__ __forceinline__ int warp_inclusive_scan(int v, int lane) {
   return v;
 }
 
-// The word planes of (n, kf) fused slots: v[p] holds word p of every
-// slot, most significant first.
+// The slots the kernel places, as a source: count() slots per row, the
+// length of slot i of a row, and its value as words u[1..kW] (most
+// significant first) below u[0] = 0.
+//
+// Slots: (n, kf) fused slots, v[p] holding word p of every slot.
 template <int kWords>
 struct Slots {
+  static constexpr int kW = kWords;
   const int32_t* v[kWords];
+  const int32_t* flens;
+  int kf;
+  __device__ __forceinline__ int count() const { return kf; }
+  __device__ __forceinline__ int len(int row, int i) const {
+    return flens[(size_t)row * kf + i];
+  }
+  __device__ __forceinline__ void words(int row, int i, uint32_t u[kWords + 1]) const {
+    u[0] = 0u;
+#pragma unroll
+    for (int p = 0; p < kWords; ++p) u[p + 1] = (uint32_t)v[p][(size_t)row * kf + i];
+  }
+};
+
+// Pairs: (n, k) raw codes of <= 32 bits; slot i is the pair (2i, 2i+1)
+// fused as the reference's `_fuse2_32` does, an odd k's last code paired
+// with an empty slot.
+struct Pairs {
+  static constexpr int kW = 2;
+  const int32_t* codes;
+  const int32_t* lens;
+  int k;
+  __device__ __forceinline__ int count() const { return (k + 1) >> 1; }
+  __device__ __forceinline__ int len(int row, int i) const {
+    const size_t a = (size_t)row * k + 2 * i;
+    return lens[a] + (2 * i + 1 < k ? lens[a + 1] : 0);
+  }
+  __device__ __forceinline__ void words(int row, int i, uint32_t u[3]) const {
+    const size_t a = (size_t)row * k + 2 * i;
+    const bool two = 2 * i + 1 < k;
+    const int l1 = lens[a], l2 = two ? lens[a + 1] : 0;
+    const uint32_t c1 = l1 > 0 ? (uint32_t)codes[a] : 0u;
+    const uint32_t c2 = l2 > 0 ? (uint32_t)codes[a + 1] : 0u;
+    const int r = l2 & 31;  // l2 == 32: r = 0, the pair is (c1, c2)
+    u[0] = 0u;
+    u[1] = l2 > 0 ? (r ? c1 >> (32 - r) : c1) : 0u;
+    u[2] = (l2 < 32 ? c1 << r : 0u) | c2;
+  }
 };
 
 // word j of the value shifted to the top of a 32 (kWords + 1)-bit window by
@@ -87,11 +144,11 @@ __device__ __forceinline__ uint32_t window_word(const uint32_t u[kWords + 1], in
   return r ? (hi << r) | (lo >> (32 - r)) : hi;
 }
 
-template <int kWords, bool kShared, bool kChecks>
+template <class Src, bool kShared, bool kChecks>
 __global__ void __launch_bounds__(kThreads)
-pack_fused_kernel(const Slots<kWords> v, const int32_t* __restrict__ flens, int kf,
-                  int max_words, int bit_offset, uint32_t* __restrict__ seg_words,
+pack_fused_kernel(const Src src, int max_words, int bit_offset, uint32_t* __restrict__ seg_words,
                   int32_t* __restrict__ nbits, int32_t* __restrict__ viol) {
+  constexpr int kWords = Src::kW;
   extern __shared__ uint32_t s_buf[];
   __shared__ int s_warp[kWarps];
   __shared__ int s_carry;
@@ -108,10 +165,10 @@ pack_fused_kernel(const Slots<kWords> v, const int32_t* __restrict__ flens, int 
   int hits = 0;  // this thread's violations (kChecks)
   __syncthreads();
 
-  const size_t base = (size_t)row * kf;
+  const int kf = src.count();
   for (int c0 = 0; c0 < kf; c0 += kThreads) {
     const int i = c0 + tid;
-    const int len = i < kf ? flens[base + i] : 0;
+    const int len = i < kf ? src.len(row, i) : 0;
     const int incl = warp_inclusive_scan(len, lane);
     if (lane == 31) s_warp[warp] = incl;
     __syncthreads();
@@ -127,19 +184,19 @@ pack_fused_kernel(const Slots<kWords> v, const int32_t* __restrict__ flens, int 
     const int sig = 32 * (kWords + 1) - (off & 31) - len;
     if (len > 0 && (!kChecks || sig >= 0)) {
       uint32_t u[kWords + 1];
-      u[0] = 0u;
-#pragma unroll
-      for (int p = 0; p < kWords; ++p) u[p + 1] = (uint32_t)v.v[p][base + i];
+      src.words(row, i, u);
       const int word = off >> 5;
       const int q = sig >> 5, r = sig & 31;
 #pragma unroll
       for (int j = 0; j <= kWords; ++j) {
         const uint32_t w = window_word<kWords>(u, j, q, r);
+        // one unsigned compare keeps words below the buffer (after a
+        // negative length) out too
+        const bool in = (unsigned)(word + j) < (unsigned)max_words;
         if constexpr (kChecks) {
-          if (w && word + j >= 0 && word + j < max_words)
-            hits += (atomicOr(&buf[word + j], w) & w) != 0u;
+          if (w && in) hits += (atomicOr(&buf[word + j], w) & w) != 0u;
         } else {
-          if (w && word + j < max_words) atomicOr(&buf[word + j], w);
+          if (w && in) atomicOr(&buf[word + j], w);
         }
       }
     }
@@ -158,28 +215,27 @@ pack_fused_kernel(const Slots<kWords> v, const int32_t* __restrict__ flens, int 
   for (int i = tid; i < max_words; i += kThreads) out[i] = __byte_perm(buf[i], 0u, 0x0123);
 }
 
-template <int kWords, bool kShared, bool kChecks>
-cudaError_t launch(const Slots<kWords>& v, const void* flens, int n, int kf, int max_words,
-                   int bit_offset, void* seg, void* nbits, void* viol, size_t bytes,
-                   cudaStream_t s) {
+template <class Src, bool kShared, bool kChecks>
+cudaError_t launch(const Src& src, int n, int max_words, int bit_offset, void* seg, void* nbits,
+                   void* viol, size_t bytes, cudaStream_t s) {
   if constexpr (kShared) {
     const cudaError_t err = cudaFuncSetAttribute(
-        pack_fused_kernel<kWords, kShared, kChecks>,
+        pack_fused_kernel<Src, kShared, kChecks>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return err;
   }
-  pack_fused_kernel<kWords, kShared, kChecks><<<n, kThreads, kShared ? bytes : 0, s>>>(
-      v, (const int32_t*)flens, kf, max_words, bit_offset, (uint32_t*)seg, (int32_t*)nbits,
-      (int32_t*)viol);
+  pack_fused_kernel<Src, kShared, kChecks><<<n, kThreads, kShared ? bytes : 0, s>>>(
+      src, max_words, bit_offset, (uint32_t*)seg, (int32_t*)nbits, (int32_t*)viol);
   return cudaGetLastError();
 }
 
 // The buffer regime (shared or global memory) and the form (checked when
-// viol is non-null; B2 only) of one launch.
-template <int kWords>
-int dispatch(const Slots<kWords>& v, const void* flens, int n, int kf, int max_words,
-             int bit_offset, void* seg, void* nbits, void* viol, int device, void* stream) {
-  if (n < 0 || kf < 0 || max_words <= 0) return (int)cudaErrorInvalidValue;
+// viol is non-null; B2 only) of one launch; k is the slots (or raw codes)
+// per row.
+template <class Src>
+int dispatch(const Src& src, int n, int k, int max_words, int bit_offset, void* seg, void* nbits,
+             void* viol, int device, void* stream) {
+  if (n < 0 || k < 0 || max_words <= 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n == 0) return (int)cudaSuccess;
@@ -191,15 +247,15 @@ int dispatch(const Slots<kWords>& v, const void* flens, int n, int kf, int max_w
   const bool shared = bytes + static_bytes <= (size_t)optin;
   cudaStream_t s = (cudaStream_t)stream;
   if (viol == nullptr) {
-    err = shared ? launch<kWords, true, false>(v, flens, n, kf, max_words, bit_offset, seg,
-                                               nbits, viol, bytes, s)
-                 : launch<kWords, false, false>(v, flens, n, kf, max_words, bit_offset, seg,
-                                                nbits, viol, bytes, s);
-  } else if constexpr (kWords == 4) {
-    err = shared ? launch<kWords, true, true>(v, flens, n, kf, max_words, bit_offset, seg,
-                                              nbits, viol, bytes, s)
-                 : launch<kWords, false, true>(v, flens, n, kf, max_words, bit_offset, seg,
-                                               nbits, viol, bytes, s);
+    err = shared ? launch<Src, true, false>(src, n, max_words, bit_offset, seg, nbits, viol,
+                                            bytes, s)
+                 : launch<Src, false, false>(src, n, max_words, bit_offset, seg, nbits, viol,
+                                             bytes, s);
+  } else if constexpr (std::is_same_v<Src, Slots<4>>) {
+    err = shared ? launch<Src, true, true>(src, n, max_words, bit_offset, seg, nbits, viol,
+                                           bytes, s)
+                 : launch<Src, false, true>(src, n, max_words, bit_offset, seg, nbits, viol,
+                                            bytes, s);
   } else {
     err = cudaErrorInvalidValue;
   }
@@ -214,9 +270,10 @@ extern "C" int pack_fused4_launch(const void* v0, const void* v1, const void* v2
                                   const void* v3, const void* flens, int n, int kf,
                                   int max_words, int bit_offset, void* seg,
                                   void* nbits, void* viol, int device, void* stream) {
-  const Slots<4> v{{(const int32_t*)v0, (const int32_t*)v1, (const int32_t*)v2,
-                    (const int32_t*)v3}};
-  return dispatch<4>(v, flens, n, kf, max_words, bit_offset, seg, nbits, viol, device, stream);
+  const Slots<4> src{{(const int32_t*)v0, (const int32_t*)v1, (const int32_t*)v2,
+                      (const int32_t*)v3},
+                     (const int32_t*)flens, kf};
+  return dispatch(src, n, kf, max_words, bit_offset, seg, nbits, viol, device, stream);
 }
 
 // B6c: 8-word slots, w0 the most significant word plane.
@@ -225,11 +282,27 @@ extern "C" int pack_fused8_launch(const void* w0, const void* w1, const void* w2
                                   const void* w6, const void* w7, const void* flens, int n,
                                   int kf, int max_words, int bit_offset, void* seg,
                                   void* nbits, int device, void* stream) {
-  const Slots<8> v{{(const int32_t*)w0, (const int32_t*)w1, (const int32_t*)w2,
-                    (const int32_t*)w3, (const int32_t*)w4, (const int32_t*)w5,
-                    (const int32_t*)w6, (const int32_t*)w7}};
-  return dispatch<8>(v, flens, n, kf, max_words, bit_offset, seg, nbits, nullptr, device,
-                     stream);
+  const Slots<8> src{{(const int32_t*)w0, (const int32_t*)w1, (const int32_t*)w2,
+                      (const int32_t*)w3, (const int32_t*)w4, (const int32_t*)w5,
+                      (const int32_t*)w6, (const int32_t*)w7},
+                     (const int32_t*)flens, kf};
+  return dispatch(src, n, kf, max_words, bit_offset, seg, nbits, nullptr, device, stream);
+}
+
+// K1: (n, k) raw codes of <= 32 bits and their lengths.
+extern "C" int pack_raw_launch(const void* codes, const void* lens, int n, int k, int max_words,
+                               int bit_offset, void* seg, void* nbits, int device,
+                               void* stream) {
+  const Slots<1> src{{(const int32_t*)codes}, (const int32_t*)lens, k};
+  return dispatch(src, n, k, max_words, bit_offset, seg, nbits, nullptr, device, stream);
+}
+
+// K2: the same raw codes, fused 2:1 as they are loaded.
+extern "C" int pack_pairs_launch(const void* codes, const void* lens, int n, int k,
+                                 int max_words, int bit_offset, void* seg, void* nbits,
+                                 int device, void* stream) {
+  const Pairs src{(const int32_t*)codes, (const int32_t*)lens, k};
+  return dispatch(src, n, k, max_words, bit_offset, seg, nbits, nullptr, device, stream);
 }
 
 extern "C" const char* pack_fused4_strerror(int err) {

@@ -1,4 +1,5 @@
-"""Explicit device selection: the port never picks a device by itself."""
+"""Device selection: the entry points run on "cuda" unless the caller asks
+for the CPU, and never fall back from one to the other."""
 
 from __future__ import annotations
 

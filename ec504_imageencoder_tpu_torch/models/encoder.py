@@ -99,9 +99,10 @@ class CompatCore(nn.Module):
         return seg, nbits.view(bsz, N_SLICES)
 
 
-def encode_compat(frames_rgb, quality: int = 12, *, device,
+def encode_compat(frames_rgb, quality: int = 12, *, device="cuda",
                   debug_checks: bool = False) -> tuple[bytes, list[bytes]]:
-    """Compat-mode encode on `device`: (B, H, W, 3) u8 RGB frames, H >= 144
+    """Compat-mode encode on `device` (the CUDA kernels on "cuda", the
+    default, their twins on "cpu"): (B, H, W, 3) u8 RGB frames, H >= 144
     and W >= 96 -> (mpeg bytes, per-frame .bit dumps), byte-exact against
     the reference C encoder.  debug_checks: see CompatCore.forward; a
     violation raises RuntimeError."""

@@ -12,15 +12,24 @@ of the reference (`dct_impl`):
   8:1 instead and kernel B6c packs its 256-bit slots;
 * "f32", the f32 matrix DCT of the high-quality path: blockize,
   `matmul_dct`, quantize, zigzag and DC prediction in PyTorch
-  (`f32_levels`, the reference's `_generic_pipeline_from_planes`), then
+  (`plane_levels`, the reference's `_generic_pipeline_from_planes`), then
   kernel B3 (VLC emission, 4:1 fusion) and B2.
+
+With a `pack` other than "fused4" (the reference's EC504_VLC=xla with
+EC504_PACK) the reference's generic emission runs instead, with either
+DCT: `plane_levels`, then 64 raw (code, len) slots per block through the
+table lookups of kernel B5 (`raw_slots`), then the chosen raw-code pack
+kernel at bit offset 38: K1 for "pallas1", K3 for "pallas3", K4 for
+"fused", K2 for "fused2w".
 
 With `debug_checks` (the port's counterpart of the reference's
 EC504_DEBUG_CHECKS=1) raw (code, len) slots take the place of B1, B6b and
-B3: kernel B6a for "aan", or the plain emission with its table lookups
-through kernel B5 for "f32"; the slot invariants are checked, the slots
-fused in PyTorch (`bitpack.fuse4`) and packed by B2's checked form, and a
-slice with violations reports their count negated in its bit count.
+B3: kernel B6a for "aan", or `raw_slots` for "f32"; the slot invariants
+are checked, the slots fused in PyTorch (`bitpack.fuse4`) and packed by
+B2's checked form, and a slice with violations reports their count
+negated in its bit count.  On the generic route (a `pack` value) the slot
+invariants of the raw slots are checked after the pack, as the
+reference's generic route does.
 
 On the CPU the kernels' plain twins run instead.
 
@@ -39,7 +48,13 @@ from ec504_imageencoder_tpu_torch.device import resolve_device
 from ec504_imageencoder_tpu_torch.ops.bitpack import fuse4, or_slice_headers
 from ec504_imageencoder_tpu_torch.ops.color import rgb_to_ycbcr, subsample_420
 from ec504_imageencoder_tpu_torch.ops.cuda_lut import block_streams_lut
-from ec504_imageencoder_tpu_torch.ops.cuda_pack import pack_fused4, pack_fused8
+from ec504_imageencoder_tpu_torch.ops.cuda_pack import (
+    pack_fused4,
+    pack_fused8,
+    pack_pairs,
+    pack_raw,
+)
+from ec504_imageencoder_tpu_torch.ops.cuda_pack_split import pack_split, pack_windows
 from ec504_imageencoder_tpu_torch.ops.cuda_vlc import (
     Luts,
     blockize,
@@ -49,7 +64,7 @@ from ec504_imageencoder_tpu_torch.ops.cuda_vlc import (
 )
 from ec504_imageencoder_tpu_torch.ops.cuda_vlc_levels import vlc_levels4
 from ec504_imageencoder_tpu_torch.ops.cuda_vlc_raw import vlc_raw
-from ec504_imageencoder_tpu_torch.ops.dct import matmul_dct
+from ec504_imageencoder_tpu_torch.ops.dct import aan_dct, matmul_dct
 from ec504_imageencoder_tpu_torch.ops.quant import quantize_intra
 from ec504_imageencoder_tpu_torch.ops.vlc_device import dc_predictors, slot_violations
 from ec504_imageencoder_tpu_torch.ops.zigzag import zigzag_scan
@@ -60,6 +75,11 @@ from ec504_imageencoder_tpu_torch.utils.tables import ZIGZAG_GATHER, scale_quant
 SLICE_HEADER_BITS = 38  # slice start code (32) + quantizer_scale (5) + extra_bit (1)
 DCT_IMPLS = ("aan", "f32")
 FUSES = (4, 8)
+# the reference's EC504_PACK values: "fused4", its production pack, and the
+# raw-code pack kernels of its generic route
+RAW_PACKS = {"pallas1": pack_raw, "pallas3": pack_windows, "fused": pack_split,
+             "fused2w": pack_pairs}
+PACKS = ("fused4", *RAW_PACKS)
 
 # ---- host half: the reference's own rules ---------------------------------
 
@@ -179,14 +199,16 @@ def gop_header_es(frame_index: int, fps: float, closed: bool = True) -> bytes:
 # ---- device half ----------------------------------------------------------
 
 
-def f32_levels(y, cb, cr, qw, zigzag):
-    """The f32-DCT half of the reference's `_generic_pipeline_from_planes`:
-    padded planes -> (levels (B * mbh, mbw * 6, 64) int32, zigzag order,
-    slot 0 the absolute quantized DC; preds (B * mbh, mbw * 6) int32 DC
-    predictors), the input of kernel B3."""
+def plane_levels(y, cb, cr, qw, zigzag, dct_impl: str = "f32"):
+    """The DCT half of the reference's `_generic_pipeline_from_planes`, with
+    the DCT `dct_impl` ("f32": `matmul_dct`, "aan": `aan_dct`): padded
+    planes -> (levels (B * mbh, mbw * 6, 64) int32, zigzag order, slot 0
+    the absolute quantized DC; preds (B * mbh, mbw * 6) int32 DC
+    predictors), the input of kernel B3 and of `raw_slots`."""
     blocks = blockize(y, cb, cr)                       # (B, mbh, mbw, 6, 8, 8)
     bsz, mbh, mbw = blocks.shape[:3]
-    dc, lvl = quantize_intra(matmul_dct(blocks), qw)
+    dct = aan_dct if dct_impl == "aan" else matmul_dct
+    dc, lvl = quantize_intra(dct(blocks), qw)
     zz = zigzag_scan(lvl, zigzag)
     lane = torch.arange(64, device=y.device)
     zz = torch.where(lane == 0, dc[..., None], zz)
@@ -194,20 +216,30 @@ def f32_levels(y, cb, cr, qw, zigzag):
     return zz.reshape(r, mbw * 6, 64), dc_predictors(dc).reshape(r, mbw * 6)
 
 
+def _check_pack(pack) -> None:
+    if pack not in PACKS:
+        raise ValueError(f"pack must be one of {', '.join(map(repr, PACKS))}, got {pack!r}")
+
+
 class EncodeCore(nn.Module):
     """Quantizer state and VLC tables as buffers; forward runs the device
     pipeline from padded 4:2:0 planes to slice segments with the DCT
-    `dct_impl` ("aan" or "f32") and, on the AAN production route, `fuse`
-    (4: B1 and B2; 8: B6b and B6c)."""
+    `dct_impl` ("aan" or "f32"), on the AAN production route `fuse` (4: B1
+    and B2; 8: B6b and B6c), and with a `pack` other than "fused4" the
+    generic route with that raw-code pack kernel (see the module
+    docstring)."""
 
-    def __init__(self, intra_q: np.ndarray, qscale: int, dct_impl: str, fuse: int = 4):
+    def __init__(self, intra_q: np.ndarray, qscale: int, dct_impl: str, fuse: int = 4,
+                 pack: str = "fused4"):
         super().__init__()
         if dct_impl not in DCT_IMPLS:
             raise ValueError(f"dct_impl must be 'aan' or 'f32', got {dct_impl!r}")
         if fuse not in FUSES:
             raise ValueError(f"fuse must be 4 or 8, got {fuse!r}")
+        _check_pack(pack)
         self.dct_impl = dct_impl
         self.fuse = fuse
+        self.pack = pack
         self.qscale = int(qscale)
         iq = torch.as_tensor(np.asarray(intra_q), dtype=torch.int32)
         self.register_buffer("intra_q", iq)
@@ -232,7 +264,13 @@ class EncodeCore(nn.Module):
         bsz, h, _ = y.shape
         mbh = h // 16
         mw = max_slice_bytes // 4
-        if debug_checks:
+        if self.pack in RAW_PACKS:
+            codes, lens = self.raw_slots(y, cb, cr)
+            seg, nbits = RAW_PACKS[self.pack](codes, lens, mw, bit_offset=SLICE_HEADER_BITS)
+            if debug_checks:
+                viol = slot_violations(codes, lens)
+                nbits = torch.where(viol > 0, -viol, nbits)
+        elif debug_checks:
             slots, viol = self._checked_slots(y, cb, cr)
             seg, nbits, pviol = pack_fused4(*slots, mw, bit_offset=SLICE_HEADER_BITS, checks=True)
             viol = viol + pviol
@@ -244,11 +282,22 @@ class EncodeCore(nn.Module):
             if self.dct_impl == "aan":
                 slots = vlc_fused4(y, cb, cr, self.qw, self.luts())
             else:
-                levels, preds = f32_levels(y, cb, cr, self.qw, self.zigzag)
+                levels, preds = plane_levels(y, cb, cr, self.qw, self.zigzag)
                 slots = vlc_levels4(levels, preds, self.luts())
             seg, nbits = pack_fused4(*slots, mw, bit_offset=SLICE_HEADER_BITS)
         seg = or_slice_headers(seg.view(bsz, mbh, max_slice_bytes), self.qscale)
         return seg, nbits.view(bsz, mbh)
+
+    def raw_slots(self, y, cb, cr):
+        """The reference's generic emission (`_emit_and_pack_generic`):
+        `plane_levels` with this core's DCT, then 64 slots per block, MB
+        header and EOB folded in, through kernel B5's lookups -> (codes,
+        lens) int32 (R, NB * 64) in stream order."""
+        levels, preds = plane_levels(y, cb, cr, self.qw, self.zigzag, self.dct_impl)
+        comp = torch.arange(levels.shape[1], device=y.device) % 6
+        codes, lens = block_streams_lut(levels, preds, comp < 4, comp == 0)
+        r = codes.shape[0]
+        return codes.reshape(r, -1).to(torch.int32), lens.reshape(r, -1).to(torch.int32)
 
     def _checked_slots(self, y, cb, cr):
         """The raw-slot routes: -> (fused slots (v0, v1, v2, v3, flens),
@@ -260,9 +309,7 @@ class EncodeCore(nn.Module):
             viol = viol + slot_violations(codes, lens)
             codes, lens = codes.transpose(1, 2), lens.transpose(1, 2)
         else:
-            levels, preds = f32_levels(y, cb, cr, self.qw, self.zigzag)  # (R, NB, 64)
-            comp = torch.arange(levels.shape[1], device=y.device) % 6
-            codes, lens = block_streams_lut(levels, preds, comp < 4, comp == 0)
+            codes, lens = self.raw_slots(y, cb, cr)
             viol = slot_violations(codes, lens)
         r = codes.shape[0]
         fused = fuse4(codes.reshape(r, -1), lens.reshape(r, -1))
@@ -284,9 +331,11 @@ def correct_pipeline(core: EncodeCore, rgb, max_slice_bytes: int,
 
 class TorchMPEG1IntraEncoder:
     """ISO-compliant all-I-frame MPEG-1 video encoder whose device pipeline
-    runs on torch tensors on `device`: the CUDA kernels on a GPU, their
-    plain twins on the CPU.  The public API, keywords and errors are the
-    reference `MPEG1IntraEncoder`'s, with `device` in place of `backend`.
+    runs on torch tensors on `device`: the CUDA kernels on a GPU (the
+    default, "cuda", which raises RuntimeError where CUDA is absent), their
+    plain twins on the CPU (device="cpu").  The public API, keywords and
+    errors are the reference `MPEG1IntraEncoder`'s, with `device` in place
+    of `backend`.
 
     dct_impl is the reference's: "auto" picks "f32" at quality >= 70 and
     "aan" below.  With "aan" the byte stream equals the reference's for
@@ -298,8 +347,15 @@ class TorchMPEG1IntraEncoder:
     fuse (4 or 8) is the reference's EC504_FUSE, under its rule: 8 runs
     the 8:1-fusion kernels (B6b, then B6c) on the AAN production route
     only.  Under debug_checks=True the sanitizer's routes run unchanged,
-    and with dct_impl="f32" it has no effect (the reference's generic path
-    always fuses 4:1).  The bytes are the same either way.
+    and with dct_impl="f32" or a pack other than "fused4" it has no effect
+    (the reference reads EC504_FUSE only on its AAN kernel route).  The
+    bytes are the same either way.
+
+    pack is the reference's EC504_PACK with EC504_VLC=xla: "fused4" (the
+    default) keeps the routes above; "pallas1", "pallas3", "fused" and
+    "fused2w" run the generic route (see the module docstring) with its
+    raw-code pack kernel K1, K3, K4 or K2, for either DCT.  The bytes are
+    the same for every value.
 
     debug_checks=True is the sanitizer (the reference's
     EC504_DEBUG_CHECKS=1): the device pipeline runs its raw-slot routes
@@ -310,7 +366,7 @@ class TorchMPEG1IntraEncoder:
                  gop_size: int = 15, max_slice_bytes: int | None = None,
                  dct_impl: str = "auto", color_range: str = "studio",
                  grow_slices: bool = True, debug_checks: bool = False,
-                 fuse: int = 4, *, device):
+                 fuse: int = 4, pack: str = "fused4", *, device="cuda"):
         if color_range not in ("studio", "full"):
             raise ValueError(f"color_range must be 'studio' or 'full', got {color_range!r}")
         if dct_impl == "auto":
@@ -319,6 +375,7 @@ class TorchMPEG1IntraEncoder:
             raise ValueError(f"dct_impl must be 'auto', 'aan' or 'f32', got {dct_impl!r}")
         if fuse not in FUSES:
             raise ValueError(f"fuse must be 4 or 8, got {fuse!r}")
+        _check_pack(pack)
         self.quality = quality
         self.dct_impl = dct_impl
         self.color_range = color_range
@@ -332,6 +389,7 @@ class TorchMPEG1IntraEncoder:
         self.grow_slices = grow_slices
         self.debug_checks = bool(debug_checks)
         self.fuse = fuse
+        self.pack = pack
         self.metrics = None  # optional sink with a histogram(name, values) method
         self.device = resolve_device(device)
         self._set_quant(*quality_to_quant(quality))
@@ -339,14 +397,15 @@ class TorchMPEG1IntraEncoder:
     def _set_quant(self, intra_q: np.ndarray, qscale: int) -> None:
         self.intra_q = np.array(intra_q, dtype=np.int32)
         self.qscale = int(qscale)
-        self.core = EncodeCore(self.intra_q, self.qscale, self.dct_impl, self.fuse).to(self.device)
+        self.core = EncodeCore(self.intra_q, self.qscale, self.dct_impl, self.fuse,
+                               self.pack).to(self.device)
 
     @classmethod
-    def from_reference(cls, enc, device, **kw) -> "TorchMPEG1IntraEncoder":
+    def from_reference(cls, enc, device="cuda", **kw) -> "TorchMPEG1IntraEncoder":
         """A port encoder that computes what the reference encoder `enc`
         computes: its quality, quantizer, DCT, colour range, GOP, frame
         rate and slice sizing, read from its attributes.  kw: the port's
-        own keywords (debug_checks, fuse)."""
+        own keywords (debug_checks, fuse, pack)."""
         port = cls(
             quality=enc.quality, frame_rate_code=enc.frame_rate_code,
             gop_size=enc.gop_size, max_slice_bytes=enc.max_slice_bytes,

@@ -1,9 +1,13 @@
 """Slot fusion and bit packing in plain PyTorch (int64 words).
 
+* `fuse2`: exact 2:1 slot fusion, the reference's
+  `ops/pallas_pack._fuse2_32`: two consecutive (code, len) slots of <= 32
+  bits become one right-aligned value of <= 64 bits, words (hi, lo).
 * `fuse4`: exact 4:1 slot fusion, the arithmetic of the reference's
   `ops/pallas_vlc.fuse_slots_streamwise`: four consecutive (code, len)
   slots of <= 30 bits become one right-aligned value of <= 128 bits,
-  held as four 32-bit words v0..v3 (most significant first).
+  held as four 32-bit words v0..v3 (most significant first); its first
+  level is `fuse2`.
 * `fuse8`: the third fusion level, the arithmetic of the reference's
   `ops/pallas_pack._fuse2_128`: pairs of `fuse4` values (slots 2k, 2k+1)
   become one value of <= 256 bits, eight words w0..w7.
@@ -18,7 +22,8 @@
   of the sum below the sum of the popcounts).
 * `pack_words8`: the same for `fuse8` values, at most 9 words each.
 * `pack_words`: the same for plain <= 32-bit codes (the reference's
-  `ops/bitpack.pack_words`).
+  `ops/bitpack.pack_words`), each spanning at most 2 words; `pack_words2`
+  the same after `fuse2`, at most 3 words per fused pair.
 * `words_to_bytes`, `or_slice_headers`: big-endian serialisation and
   the 38-bit slice header (`models/mpeg1._or_slice_headers`).
 
@@ -42,22 +47,31 @@ def _shr(x, k):
     return torch.bitwise_right_shift(x, k)
 
 
+def fuse2(codes: torch.Tensor, lens: torch.Tensor):
+    """(..., K) slot codes (u32 bits in any integer dtype) and lens <= 32
+    in stream order, K % 2 == 0 -> (hi, lo, len2), each (..., K // 2)
+    int64: slots 2i and 2i+1 fused to c1 * 2^l2 | c2.
+
+    Zero-length slots contribute nothing whatever their code."""
+    codes = torch.where(lens > 0, codes.to(_I64) & _M32, 0)
+    lens = lens.to(_I64)
+    c = codes.reshape(*codes.shape[:-1], -1, 2)
+    ln = lens.reshape(*lens.shape[:-1], -1, 2)
+    c1, c2, l1, l2 = c[..., 0], c[..., 1], ln[..., 0], ln[..., 1]
+    r = l2 & 31
+    rc = (32 - r) & 31
+    hi = torch.where(l2 > 0, _shr(c1, rc), 0)  # l2 == 32: rc == 0, hi = c1
+    lo = (torch.where(l2 < 32, _shl(c1, r) & _M32, 0)) | c2
+    return hi, lo, l1 + l2
+
+
 def fuse4(codes: torch.Tensor, lens: torch.Tensor):
     """(..., K) slot codes/lens in stream order, K % 4 == 0 ->
     (v0, v1, v2, v3, flens), each (..., K // 4) int64.
 
     Zero-length slots contribute nothing whatever their code."""
-    codes = torch.where(lens > 0, codes.to(_I64), 0)
-    lens = lens.to(_I64)
-    c = codes.reshape(*codes.shape[:-1], -1, 2)
-    ln = lens.reshape(*lens.shape[:-1], -1, 2)
-    c1, c2, l1, l2 = c[..., 0], c[..., 1], ln[..., 0], ln[..., 1]
     # level 1: pairs of <= 30-bit slots -> (hi, lo) 32-bit words
-    r = l2 & 31
-    rc = (32 - r) & 31
-    hi = torch.where(l2 > 0, _shr(c1, rc), 0)
-    lo = (torch.where(l2 < 32, _shl(c1, r) & _M32, 0)) | c2
-    len2 = l1 + l2
+    hi, lo, len2 = fuse2(codes, lens)
     # level 2: pairs of pairs -> four words
     hi = hi.reshape(*hi.shape[:-1], -1, 2)
     lo = lo.reshape(*lo.shape[:-1], -1, 2)
@@ -178,9 +192,21 @@ def pack_words8(words, flens, max_words: int, bit_offset: int = 0):
 
 
 def pack_words(codes, lens, max_words: int, bit_offset: int = 0):
-    """(n, K) <= 32-bit codes -> (words (n, max_words) int64, nbits (n,))."""
-    z = torch.zeros_like(lens, dtype=_I64)
-    return pack_words4(z, z, z, codes, lens, max_words, bit_offset)
+    """(n, K) <= 32-bit codes (u32 bits in any integer dtype) + (n, K)
+    lengths -> (words (n, max_words) int64, nbits (n,) int64), as
+    `pack_words4`."""
+    return _pack_values((codes,), lens, max_words, bit_offset, False)
+
+
+def pack_words2(codes, lens, max_words: int, bit_offset: int = 0):
+    """`pack_words` through `fuse2`: the same words and bit counts, with
+    slots 2i and 2i+1 placed as one value of <= 64 bits (an odd K gets an
+    empty partner)."""
+    if codes.shape[-1] % 2:
+        codes = torch.nn.functional.pad(codes, (0, 1))
+        lens = torch.nn.functional.pad(lens, (0, 1))
+    hi, lo, len2 = fuse2(codes, lens)
+    return _pack_values((hi, lo), len2, max_words, bit_offset, False)
 
 
 def words_to_bytes(words: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,7 @@
-"""Kernels B2 and B6c: fused VLC slots -> big-endian slice bytes + bit counts.
+"""Kernels B2, B6c, K1 and K2: VLC slots -> big-endian slice bytes + bit counts.
 
-One CUDA source (`csrc/pack_fused4.cu`, a kernel templated on the words
-per slot) replaces two Pallas kernels of
+One CUDA source (`csrc/pack_fused4.cu`, a kernel templated on the slots
+it reads) replaces five Pallas kernels of
 `ec504_imageencoder_tpu/ops/pallas_pack.py`, each with the bitcast to
 bytes behind it:
 
@@ -15,6 +15,15 @@ bytes behind it:
   each spanning <= 9 words.  Any max_words works (the TPU kernel's
   multiple-of-128 limit was its tiling).  Twin: `pack_fused8_plain`
   (`bitpack.pack_words8`).
+* `pack_raw` (K1) packs raw codes of <= 32 bits (`bitpack.pack_words`)
+  and replaces both `_pack_kernel` (`pack_words_pallas`, the reference's
+  EC504_PACK=pallas1, B6d) and `_pack2_kernel` (`pack_words_pallas2`,
+  B6e, which nothing calls): the two differ only in how they lay the
+  same placement on the TPU's matrix unit.  Twin: `pack_raw_plain`.
+* `pack_pairs` (K2) packs the same codes fused 2:1 as it loads them,
+  replacing `_fused2w_kernel` and the `_fuse2_32` before it
+  (`pack_words_fused2w`, EC504_PACK=fused2w, B6h).  Twin:
+  `pack_pairs_plain` (`bitpack.fuse2`, then `pack_words2`).
 
 `checks=True` runs the checked form, which replaces the debug outputs of
 `_fused4_kernel` (`pack_words_fused4_core(..., debug=True)`) and also
@@ -35,19 +44,29 @@ import ctypes
 import torch
 
 from ec504_imageencoder_tpu_torch.ops import _build
-from ec504_imageencoder_tpu_torch.ops.bitpack import pack_words4, pack_words8, words_to_bytes
+from ec504_imageencoder_tpu_torch.ops.bitpack import (
+    pack_words,
+    pack_words2,
+    pack_words4,
+    pack_words8,
+    words_to_bytes,
+)
 
-# kernel launches since the last reset: B2 unchecked and checked, B6c
-# (launches for CPU tensors excluded)
+# kernel launches since the last reset: B2 unchecked and checked, B6c, K1,
+# K2 (launches for CPU tensors excluded)
 launches = 0
 launches_checked = 0
 launches8 = 0
+launches_raw = 0
+launches_pairs = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
     "pack_fused4_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P],
     "pack_fused8_launch": [*[_P] * 9, _I, _I, _I, _I, _P, _P, _I, _P],
+    "pack_raw_launch": [_P, _P, _I, _I, _I, _I, _P, _P, _I, _P],
+    "pack_pairs_launch": [_P, _P, _I, _I, _I, _I, _P, _P, _I, _P],
 }
 
 
@@ -65,7 +84,7 @@ def pack_fused4_plain(v0, v1, v2, v3, flens, max_words: int, bit_offset: int = 3
     return head + (out[2].to(torch.int32),) if checks else head
 
 
-def _check(vs, max_words: int, bit_offset: int, name: str) -> None:
+def check_slots(vs, max_words: int, bit_offset: int, name: str) -> None:
     """Raise unless vs (word planes, then the lengths) are int32 (n, KF)
     tensors on one device, contiguous on a CUDA device."""
     flens = vs[-1]
@@ -94,7 +113,7 @@ def pack_fused4(v0, v1, v2, v3, flens, max_words: int, bit_offset: int = 38,
     true bit count including bit_offset, even when it exceeds the buffer."""
     global launches, launches_checked
     vs = (v0, v1, v2, v3, flens)
-    _check(vs, max_words, bit_offset, "pack_fused4")
+    check_slots(vs, max_words, bit_offset, "pack_fused4")
     if flens.device.type == "cpu":
         return pack_fused4_plain(*vs, max_words, bit_offset, checks)
     lib = load_kernel()
@@ -129,7 +148,7 @@ def pack_fused8(words, flens, max_words: int, bit_offset: int = 38):
     vs = (*words, flens)
     if len(vs) != 9:
         raise ValueError(f"pack_fused8 takes 8 word planes, got {len(vs) - 1}")
-    _check(vs, max_words, bit_offset, "pack_fused8")
+    check_slots(vs, max_words, bit_offset, "pack_fused8")
     if flens.device.type == "cpu":
         return pack_fused8_plain(words, flens, max_words, bit_offset)
     lib = load_kernel()
@@ -144,3 +163,53 @@ def pack_fused8(words, flens, max_words: int, bit_offset: int = 38):
     _build.check(lib, "pack_fused4", err)
     launches8 += 1
     return seg, nbits
+
+
+def pack_raw_plain(codes, lens, max_words: int, bit_offset: int = 38):
+    """Plain twin of K1 (and of K3 and K4): same arguments, same outputs."""
+    out, nbits = pack_words(codes, lens, max_words, bit_offset)
+    return words_to_bytes(out), nbits.to(torch.int32)
+
+
+def pack_pairs_plain(codes, lens, max_words: int, bit_offset: int = 38):
+    """Plain twin of K2: same arguments, same outputs."""
+    out, nbits = pack_words2(codes, lens, max_words, bit_offset)
+    return words_to_bytes(out), nbits.to(torch.int32)
+
+
+def _raw_launch(entry: str, codes, lens, max_words: int, bit_offset: int):
+    lib = load_kernel()
+    n, k = lens.shape
+    seg = torch.empty((n, 4 * max_words), dtype=torch.uint8, device=lens.device)
+    nbits = torch.empty((n,), dtype=torch.int32, device=lens.device)
+    err = getattr(lib, f"{entry}_launch")(
+        codes.data_ptr(), lens.data_ptr(), n, k, max_words, bit_offset,
+        seg.data_ptr(), nbits.data_ptr(),
+        lens.device.index, torch.cuda.current_stream(lens.device).cuda_stream,
+    )
+    _build.check(lib, "pack_fused4", err)
+    return seg, nbits
+
+
+def pack_raw(codes, lens, max_words: int, bit_offset: int = 38):
+    """K1.  (n, K) int32 raw codes (u32 bits of <= 32-bit values) and
+    lengths -> (seg (n, 4 * max_words) u8, nbits (n,) int32), as
+    `pack_fused4`."""
+    global launches_raw
+    check_slots((codes, lens), max_words, bit_offset, "pack_raw")
+    if lens.device.type == "cpu":
+        return pack_raw_plain(codes, lens, max_words, bit_offset)
+    out = _raw_launch("pack_raw", codes, lens, max_words, bit_offset)
+    launches_raw += 1
+    return out
+
+
+def pack_pairs(codes, lens, max_words: int, bit_offset: int = 38):
+    """K2: `pack_raw`'s function, the codes fused 2:1 as they are loaded."""
+    global launches_pairs
+    check_slots((codes, lens), max_words, bit_offset, "pack_pairs")
+    if lens.device.type == "cpu":
+        return pack_pairs_plain(codes, lens, max_words, bit_offset)
+    out = _raw_launch("pack_pairs", codes, lens, max_words, bit_offset)
+    launches_pairs += 1
+    return out

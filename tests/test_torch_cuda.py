@@ -24,10 +24,12 @@ from ec504_imageencoder_tpu.models.encoder import encode_compat as encode_compat
 from ec504_imageencoder_tpu.models.mpeg1 import MPEG1IntraEncoder
 from ec504_imageencoder_tpu_torch.models import mpeg1
 from ec504_imageencoder_tpu_torch.models.encoder import encode_compat
-from ec504_imageencoder_tpu_torch.models.mpeg1 import TorchMPEG1IntraEncoder, f32_levels
+from ec504_imageencoder_tpu_torch.models.mpeg1 import TorchMPEG1IntraEncoder, plane_levels
 from ec504_imageencoder_tpu_torch.ops import (
+    bitpack,
     cuda_lut,
     cuda_pack,
+    cuda_pack_split,
     cuda_vlc,
     cuda_vlc_compat,
     cuda_vlc_levels,
@@ -123,7 +125,7 @@ def test_kernel_wrappers_reject_bad_input(cuda):
 def test_levels_kernel_matches_twin(cuda, quality, shape):
     rng = np.random.default_rng(quality * 7 + shape[2])
     core = TorchMPEG1IntraEncoder(quality=quality, device=cuda).core
-    levels, preds = f32_levels(*_planes(rng, *shape, cuda), core.qw, core.zigzag)
+    levels, preds = plane_levels(*_planes(rng, *shape, cuda), core.qw, core.zigzag)
     got = cuda_vlc_levels.vlc_levels4(levels, preds, core.luts())
     want = cuda_vlc_levels.vlc_levels4_plain(levels, preds, core.luts())
     for g, w in zip(got, want):
@@ -326,3 +328,64 @@ def test_fuse8_encoder(cuda):
     assert got == _cpu_encode(frames, quality=50, max_slice_bytes=2560)
     assert cuda_vlc.launches8 > 0 and cuda_pack.launches8 > 0
     assert cuda_vlc.launches == cuda_pack.launches == 0
+
+
+# ---- pack=: the raw-code pack kernels K1-K4 --------------------------------
+
+RAW_KERNELS = {"pallas1": (cuda_pack, "pack_raw", "launches_raw"),
+               "pallas3": (cuda_pack_split, "pack_windows", "launches_windows"),
+               "fused": (cuda_pack_split, "pack_split", "launches_split"),
+               "fused2w": (cuda_pack, "pack_pairs", "launches_pairs")}
+
+
+def _raw_slots(rng, n, k, dev):
+    """(n, k) raw codes of up to 30 bits (so that fuse4 takes them too),
+    masked to their lengths, and their int32 lengths; 40% empty."""
+    lens = rng.integers(0, 31, (n, k))
+    lens[rng.random((n, k)) < 0.4] = 0
+    codes = rng.integers(0, 1 << 30, (n, k)) & ((1 << lens) - 1)
+    return tuple(torch.from_numpy(a.astype(np.int32)).to(dev) for a in (codes, lens))
+
+
+@pytest.mark.parametrize("k", [46080, 4095])
+@pytest.mark.parametrize("max_words", [5888, 7, 1000, 342528 // 4])
+def test_raw_pack_kernels_match_twins(cuda, max_words, k):
+    """K1-K4 against their twins and against B2 on the 4:1 fusion of the
+    same slots: a 1080p row's 46,080 slots and an odd count; 7 words
+    overflows every slice, 1000 is no multiple of 128, 342528 B exceeds
+    shared memory (K1, K2 place in global memory)."""
+    codes, lens = _raw_slots(np.random.default_rng(max_words + k), 5, k, cuda)
+    want = cuda_pack.pack_raw_plain(codes, lens, max_words, bit_offset=38)
+    if k % 4 == 0:
+        fused = tuple(cuda_vlc.to_i32_bits(t) for t in bitpack.fuse4(codes, lens))
+        via_b2 = cuda_pack.pack_fused4(*fused, max_words, bit_offset=38)
+        assert torch.equal(via_b2[0], want[0]) and torch.equal(via_b2[1], want[1])
+    for pack, (mod, fn, _) in RAW_KERNELS.items():
+        seg, nbits = getattr(mod, fn)(codes, lens, max_words, bit_offset=38)
+        assert torch.equal(nbits, want[1]), pack
+        assert torch.equal(seg, want[0]), pack
+    pairs = cuda_pack.pack_pairs_plain(codes, lens, max_words, bit_offset=38)
+    assert torch.equal(pairs[0], want[0]) and torch.equal(pairs[1], want[1])
+
+
+@pytest.mark.parametrize("pack", list(RAW_KERNELS))
+def test_pack_route_encoder(cuda, pack):
+    """pack= on the card: the numpy reference's bytes (and the CPU
+    encoder's) at q=50 (AAN) and q=85 (f32), with a forced regrow, through
+    B5 and the chosen kernel, never B1, B2, B3 or B6a."""
+    mod, _, counter = RAW_KERNELS[pack]
+    frames = np.random.default_rng(9).integers(0, 256, (2, 40, 520, 3), dtype=np.uint8)
+    for quality in (50, 85):
+        setattr(mod, counter, 0)
+        cuda_lut.launches = cuda_vlc.launches = cuda_vlc_levels.launches = 0
+        cuda_pack.launches = cuda_vlc_raw.launches = 0
+        enc = TorchMPEG1IntraEncoder(quality=quality, max_slice_bytes=2560, pack=pack,
+                                     device=cuda)
+        got = enc.encode(frames)
+        want = MPEG1IntraEncoder(quality=quality, max_slice_bytes=2560, backend="numpy")
+        assert got == want.encode(frames)
+        assert got == _cpu_encode(frames, quality=quality, max_slice_bytes=2560)
+        assert enc.max_slice_bytes > 2560
+        assert getattr(mod, counter) > 0 and cuda_lut.launches > 0
+        assert cuda_vlc.launches == cuda_vlc_levels.launches == 0
+        assert cuda_pack.launches == cuda_vlc_raw.launches == 0

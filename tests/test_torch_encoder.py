@@ -19,6 +19,7 @@ from ec504_imageencoder_tpu.models.decoder import decode_es, decode_es_fast, psn
 from ec504_imageencoder_tpu.models.mpeg1 import MPEG1IntraEncoder
 from ec504_imageencoder_tpu.syntax import headers
 from ec504_imageencoder_tpu_torch.device import resolve_device
+from ec504_imageencoder_tpu_torch.models import mpeg1
 from ec504_imageencoder_tpu_torch.models.mpeg1 import TorchMPEG1IntraEncoder
 
 
@@ -120,8 +121,8 @@ def test_cuda_device_is_never_replaced_by_the_cpu():
         resolve_device("cuda")
     with pytest.raises(RuntimeError, match="cuda"):
         TorchMPEG1IntraEncoder(quality=50, device="cuda")
-    with pytest.raises(TypeError):
-        TorchMPEG1IntraEncoder(quality=50)  # no default device
+    with pytest.raises(RuntimeError, match="cuda"):
+        TorchMPEG1IntraEncoder(quality=50)  # the default device is the card
 
 
 def _psnrs(es, frames):
@@ -261,3 +262,68 @@ def test_fuse_must_be_4_or_8():
             TorchMPEG1IntraEncoder(quality=50, fuse=fuse, device="cpu")
     port = TorchMPEG1IntraEncoder.from_reference(MPEG1IntraEncoder(backend="numpy"), "cpu", fuse=8)
     assert port.fuse == 8
+
+
+# ---- pack=: the generic route with the raw-code pack kernels (K1-K4) -------
+
+RAW_PACKS = ["pallas1", "pallas3", "fused", "fused2w"]
+
+
+@pytest.mark.parametrize("quality", [12, 50, 85])
+@pytest.mark.parametrize("pack", RAW_PACKS)
+def test_pack_routes_match_numpy(odd_frames, pack, quality):
+    """pack= (the reference's EC504_VLC=xla with EC504_PACK) on the CPU:
+    levels with either DCT, raw slots through the B5 lookups, then the
+    raw-code pack; the numpy reference's bytes for both intakes."""
+    ref = MPEG1IntraEncoder(quality=quality, backend="numpy")
+    port = TorchMPEG1IntraEncoder(quality=quality, pack=pack, device="cpu")
+    assert port.pack == port.core.pack == pack
+    assert port.encode(odd_frames) == ref.encode(odd_frames)
+    planes = _planes(odd_frames)
+    assert port.encode_from_planes(*planes) == ref.encode_from_planes(*planes)
+
+
+@pytest.mark.parametrize("pack", RAW_PACKS)
+def test_pack_routes_forced_regrow(pack):
+    """An overflowing 2560 B slice keeps its true bit count through every
+    raw-code pack, so one regrow lands; fuse=8 changes nothing here."""
+    frames = np.random.default_rng(5).integers(0, 256, (1, 16, 512, 3), dtype=np.uint8)
+    ref = MPEG1IntraEncoder(quality=50, max_slice_bytes=2560, backend="numpy")
+    port = TorchMPEG1IntraEncoder(quality=50, max_slice_bytes=2560, pack=pack, fuse=8,
+                                  device="cpu")
+    assert port.encode(frames) == ref.encode(frames)
+    assert port.max_slice_bytes > 2560 and port.max_slice_bytes == ref.max_slice_bytes
+
+
+@pytest.mark.parametrize("pack", RAW_PACKS)
+def test_pack_routes_debug_checks(odd_frames, pack, monkeypatch):
+    """debug_checks on the generic route: the same bytes; a slot length of
+    31 (over 30) raises RuntimeError, as the reference's generic guard
+    negates the slice's bit count."""
+    for quality in (50, 85):
+        dbg = TorchMPEG1IntraEncoder(quality=quality, pack=pack, debug_checks=True, device="cpu")
+        plain = TorchMPEG1IntraEncoder(quality=quality, device="cpu")
+        assert dbg.encode(odd_frames) == plain.encode(odd_frames)
+
+    real = mpeg1.block_streams_lut
+
+    def corrupt(*args):
+        codes, lens = real(*args)
+        lens[0, 3, 5] = 31
+        return codes, lens
+
+    monkeypatch.setattr(mpeg1, "block_streams_lut", corrupt)
+    with pytest.raises(RuntimeError, match="invariant violations"):
+        TorchMPEG1IntraEncoder(quality=50, pack=pack, debug_checks=True,
+                               device="cpu").encode(odd_frames)
+
+
+def test_pack_must_be_known():
+    """No "mxu" (XLA, not a Pallas kernel) and no "pallas2" (no route in
+    the reference); from_reference passes pack on."""
+    for pack in ("mxu", "pallas2", "FUSED", None):
+        with pytest.raises(ValueError, match="pack"):
+            TorchMPEG1IntraEncoder(quality=50, pack=pack, device="cpu")
+    port = TorchMPEG1IntraEncoder.from_reference(MPEG1IntraEncoder(backend="numpy"), "cpu",
+                                                 pack="pallas3")
+    assert port.pack == "pallas3" and TorchMPEG1IntraEncoder(device="cpu").pack == "fused4"

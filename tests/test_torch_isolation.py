@@ -37,6 +37,8 @@ es = enc.encode(frames)
 es2 = enc.encode_from_planes(frames[..., 0], frames[:, ::2, ::2, 1], frames[:, ::2, ::2, 2])
 assert es[:4] == es2[:4] == bytes([0, 0, 1, 0xB3])
 assert m.TorchMPEG1IntraEncoder(quality=50, fuse=8, device="cpu").encode(frames) == es
+for pack in m.PACKS:
+    assert m.TorchMPEG1IntraEncoder(quality=50, pack=pack, device="cpu").encode(frames) == es
 hq = m.TorchMPEG1IntraEncoder(quality=85, device="cpu")
 assert hq.dct_impl == "f32" and hq.encode(frames)[:4] == es[:4]
 for q in (50, 85):

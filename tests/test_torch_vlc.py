@@ -42,7 +42,7 @@ from ec504_imageencoder_tpu.ops.vlc_device import block_streams_compat as ref_bl
 from ec504_imageencoder_tpu.ops.vlc_device import block_streams_correct64 as ref_block_streams_correct64
 from ec504_imageencoder_tpu.ops.zigzag import zigzag_scan as ref_zigzag_scan
 from ec504_imageencoder_tpu.utils.tables import ZIGZAG_GATHER, scale_quantization_matrix
-from ec504_imageencoder_tpu_torch.models.mpeg1 import f32_levels
+from ec504_imageencoder_tpu_torch.models.mpeg1 import plane_levels
 from ec504_imageencoder_tpu_torch.ops import cuda_vlc, cuda_vlc_compat, cuda_vlc_levels, cuda_vlc_raw
 from ec504_imageencoder_tpu_torch.ops.cuda_vlc import Luts
 from ec504_imageencoder_tpu_torch.ops.dct import aan_dct
@@ -237,7 +237,7 @@ def test_levels_twin_matches_pallas_kernel(quality, noise):
     intra_q, qscale = quality_to_quant(quality)
     qw = torch.from_numpy((intra_q * qscale).astype(np.int32))
     luts = Luts.default("cpu")
-    levels, preds = f32_levels(y, cb, cr, qw, luts.zigzag)
+    levels, preds = plane_levels(y, cb, cr, qw, luts.zigzag)
     if noise and quality == 100:
         assert int(levels[..., 1:].abs().max()) >= 128  # 28-bit escapes
 
