@@ -19,7 +19,10 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    CUDA kernel library from ec504_imageencoder_tpu_torch/csrc/, one nvcc
    per source, all at once (cold build time);
 2. kernel B1 (vlc_fused4) against its plain PyTorch twin on the card, on
-   16 x 1080p planes of natural content and on 1000 x 1400 noise: exact;
+   16 x 1080p planes of natural content, on 1000 x 1400 noise (padded to
+   1408: 528 blocks a slice row, a half-warp in B1's last group of 128, as
+   1080p's 720 leave one), and on 2 x 1080p flat planes (every AC level 0)
+   and checkerboards (the last zigzag level nonzero): exact;
 3. kernel B2 (pack_fused4) against its twin on those slots, including a
    slice buffer that overflows and one too large for shared memory: exact;
 4. the q=50 main path: TorchMPEG1IntraEncoder(quality=50, device="cuda")
@@ -30,8 +33,11 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    and q=50 encode()/encode_from_planes() in frames/s with every output
    byte fetched to the host;
 6. kernel B3 (vlc_levels4) against its twin: 16 x 1080p at q=85 (levels
-   computed once on the card by the f32 DCT path) and 2 x 1000 x 1400
-   noise at q=100 (28-bit escapes): exact;
+   computed once on the card by the f32 DCT path), 2 x 1000 x 1400 noise
+   at q=100 (28-bit escapes), the flat planes and checkerboards of phase 2
+   at q=100, and the noise's levels with each block's largest AC level
+   moved to the last slot and the others cleared (runs of 62, escapes):
+   exact;
 7. kernels B4a (vlc_compat_slots) and B4b (vlc_compat_fused4) against
    their twins on the 30 golden frames and on 480 frames of 400 x 600
    (16 copies of the golden sequence): exact;
@@ -164,6 +170,22 @@ def _pad_planes(np, y, cb, cr):
     y = np.pad(y, ((0, 0), (0, ph), (0, pw)), mode="edge")
     c = ((0, 0), (0, y.shape[1] // 2 - cb.shape[1]), (0, y.shape[2] // 2 - cb.shape[2]))
     return y, np.pad(cb, c, mode="edge"), np.pad(cr, c, mode="edge")
+
+
+def _pattern_planes(np, rng, content: str, n: int):
+    """n 1080p frames of 4:2:0 planes, padded: "flat" (one value per frame
+    and plane, so every AC level is 0) or "checker" (a checkerboard of
+    random contrast, so the last zigzag level is nonzero)."""
+    h = HEIGHT + -HEIGHT % 16
+    out = []
+    for s in ((n, h, WIDTH), (n, h // 2, WIDTH // 2), (n, h // 2, WIDTH // 2)):
+        if content == "flat":
+            p = np.broadcast_to(rng.integers(0, 256, (n, 1, 1)), s)
+        else:
+            yy, xx = np.indices(s[1:])
+            p = 128 + rng.integers(100, 128, (n, 1, 1)) * (((yy + xx) & 1) * 2 - 1)
+        out.append(np.ascontiguousarray(p, dtype=np.uint8))
+    return out
 
 
 def _flat(out):
@@ -340,11 +362,14 @@ def main() -> int:
     noise = [rng.integers(0, 256, s, dtype=np.uint8)
              for s in ((2, oh, ow), (2, oh // 2, ow // 2), (2, oh // 2, ow // 2))]
     planes_odd = tuple(torch.from_numpy(p).to(dev) for p in _pad_planes(np, *noise))
+    planes_pattern = {c: tuple(torch.from_numpy(p).to(dev) for p in _pattern_planes(np, rng, c, 2))
+                      for c in ("flat", "checker")}
 
     # ---- 2. B1 against its twin ------------------------------------------
     b1_err = 0
     slots = {}
-    for name, planes in (("16x1080p", planes_hd), (f"2x{oh}x{ow} noise", planes_odd)):
+    for name, planes in (("16x1080p", planes_hd), (f"2x{oh}x{ow} noise", planes_odd),
+                         *((f"2x1080p {c}", p) for c, p in planes_pattern.items())):
         got = cuda_vlc.vlc_fused4(*planes, core.qw, luts)
         want = cuda_vlc.vlc_fused4_plain(*planes, core.qw, luts)
         torch.cuda.synchronize()
@@ -449,12 +474,24 @@ def main() -> int:
     noise_in = plane_levels(*planes_odd, q100.qw, q100.zigzag)
     if int(noise_in[0][..., 1:].abs().max()) < 128:
         raise AssertionError("the q=100 noise levels hold no 28-bit escape")
+    # each noise block keeps its largest AC level, moved to the last slot
+    ac = noise_in[0][..., 1:]
+    last_only = noise_in[0].clone()
+    last_only[..., 1:63] = 0
+    last_only[..., 63] = ac.gather(-1, ac.abs().argmax(-1, keepdim=True)).squeeze(-1)
+    pattern_in = {c: plane_levels(*p, q100.qw, q100.zigzag) for c, p in planes_pattern.items()}
+    if pattern_in["flat"][0][..., 1:].any() or not pattern_in["checker"][0][..., 63].all():
+        raise AssertionError("flat planes gave an AC level, or a checkerboard no last level")
     b3_err = max(
         _check_twin(torch, f"B3 vlc_levels4 vs twin, {name}", cuda_vlc_levels.vlc_levels4,
                     cuda_vlc_levels.vlc_levels4_plain, (*lv_in, luts))
-        for name, lv_in in ((f"16x1080p q={HQ_QUALITY}", hq_in), (f"2x{oh}x{ow} noise q=100", noise_in))
+        for name, lv_in in ((f"16x1080p q={HQ_QUALITY}", hq_in),
+                            (f"2x{oh}x{ow} noise q=100", noise_in),
+                            *((f"2x1080p {c} q=100", v) for c, v in pattern_in.items()),
+                            (f"2x{oh}x{ow} noise q=100, last AC level only",
+                             (last_only, noise_in[1])))
     )
-    del noise_in
+    del noise_in, ac, last_only, pattern_in, planes_pattern
 
     # ---- 7. B4a and B4b against their twins ------------------------------
     gold_frames, gold_mpeg, gold_md5 = _golden(np)

@@ -1,8 +1,8 @@
 // Device code shared by the kernels that read padded 4:2:0 planes directly
 // (vlc_fused4.cu, B1; vlc_raw.cu, B6a): where an 8x8 block of a slice row
 // starts, its quantized DC from the pixel sum, the integer AAN DCT of its
-// pixels and the ISO intra quantization + zigzag into a per-thread column
-// of shared memory.
+// pixels and the ISO intra quantization + zigzag into shared memory (a
+// per-thread column, or B1's swizzled block-major layout).
 //
 // Every function mirrors the PyTorch twins (ops/cuda_vlc.py::blockize,
 // ops/dct.py::aan_dct, ops/quant.py::quantize_intra, ops/zigzag.py).
@@ -51,13 +51,13 @@ __device__ __forceinline__ void block_aan_dct(const uint8_t* p, int stride, int 
   aan_dct(x);
 }
 
-// ISO intra AC quantization of x, written in zigzag order to a column of
-// shared memory: scan position k at col[k * kStride] (slot 0 holds the
-// quantized F00, which the emission does not read: the DC slot comes from
-// block_dc / emit_dc).
-template <int kStride>
-__device__ __forceinline__ void quantize_to_column(const int x[8][8], const int* s_qw,
-                                                   const int* s_zpos, int* col) {
+// ISO intra AC quantization of x in zigzag order: store(s_zpos[v * 8 + u],
+// level of coefficient (v, u)) for each coefficient, in one fixed order
+// (slot 0 is the quantized F00, which the emission does not read: the DC
+// slot comes from block_dc / emit_dc).
+template <class Store>
+__device__ __forceinline__ void quantize_zigzag(const int x[8][8], const int* s_qw,
+                                                const int* s_zpos, Store store) {
 #pragma unroll
   for (int v = 0; v < 8; ++v)
 #pragma unroll
@@ -65,9 +65,45 @@ __device__ __forceinline__ void quantize_to_column(const int x[8][8], const int*
       const int f = x[v][u];
       const int q = s_qw[v * 8 + u];
       const int mag = min((16 * abs(f) + q) / (2 * q), 255);
-      col[s_zpos[v * 8 + u] * kStride] = f > 0 ? mag : (f < 0 ? -mag : 0);
+      store(s_zpos[v * 8 + u], f > 0 ? mag : (f < 0 ? -mag : 0));
     }
 }
+
+// The same into a column of shared memory: scan position k at
+// col[k * kStride] (s_zpos maps to the scan position).
+template <int kStride>
+__device__ __forceinline__ void quantize_to_column(const int x[8][8], const int* s_qw,
+                                                   const int* s_zpos, int* col) {
+  quantize_zigzag(x, s_qw, s_zpos, [col](int k, int lv) { col[k * kStride] = lv; });
+}
+
+// A group's levels for the warp-cooperative emission (B1): block-major, 64
+// words per block, XOR-swizzled so that both of its accesses are free of
+// bank conflicts.  Level k of the group's block t lies at word
+// t * 64 + (swizzle_slot(k) ^ (t & 31)).
+//  - The zigzag scatter: the 32 threads of a warp each store the same k of
+//    their own block; the banks are swizzle_slot(k) ^ lane, 32 distinct.
+//  - The cooperative read: lanes 0-15 read block t (even), lanes 16-31
+//    block t + 1, lane j its levels 4j .. 4j+3, one 4-byte load each; for
+//    level i the banks are (4 (j & 7) + i) ^ (t & 31) ^ 2 (j >> 3), whose
+//    low two bits differ between the four groups of 8 lanes: 32 distinct.
+// A 16-byte read per lane would need a lane's four levels in one aligned
+// 16-byte chunk; every store of the scatter would then fall on a bank of
+// k mod 4, 32 threads on 8 banks (4-way).  Four conflict-free 4-byte loads
+// move the warp's 512 B in the same four shared-memory wavefronts.
+__device__ __forceinline__ int swizzle_slot(int k) { return k ^ ((k >> 5) << 1); }
+
+// The levels of block t of a group (its 64 words at blk), for the
+// cooperative read: lane j gets levels 4j .. 4j+3.
+struct SwizzledLevels {
+  const int* blk;
+  int t;
+  __device__ __forceinline__ void operator()(int j, int lv[4]) const {
+    const int s = (t & 31) ^ ((j >> 3) << 1);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) lv[i] = blk[(4 * j + i) ^ s];
+  }
+};
 
 // The zigzag levels of a thread's block, in its column of shared memory:
 // slot k at col[k * kStride].

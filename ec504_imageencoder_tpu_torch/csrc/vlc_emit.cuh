@@ -2,7 +2,8 @@
 // vlc_compat.cu, vlc_raw.cu): the reference's integer AAN forward DCT,
 // the VLC table layout in shared memory, the correct-mode DC and AC slot
 // emission, the exact 4:1 and 8:1 slot fusions with their stream-order
-// stores, and the unfused (raw) slot store.
+// stores (a thread per block, and the warp-cooperative 4:1 emission of B1
+// and B3), and the unfused (raw) slot store.
 //
 // Every function mirrors a function of the PyTorch twins (ops/dct.py,
 // ops/vlc_device.py, ops/bitpack.py::fuse4 and fuse8), which mirror the
@@ -211,20 +212,55 @@ __device__ __forceinline__ void emit_four_slots(const Levels& levels, int j, uin
   }
 }
 
-// The 64 slots of one correct-mode block, 4:1-fused, stored at fused
-// slots obase .. obase + 15 (levels, code0 and len0 as for
-// emit_four_slots).
-template <class Levels>
-__device__ __forceinline__ void emit_block_fused4(const Levels& levels, uint32_t code0,
-                                                  int len0, const uint32_t* s_ac,
-                                                  const FusedOut& out, size_t obase) {
-  int run = 0;
-  for (int j = 0; j < 16; ++j) {
-    uint32_t c[4];
-    int l[4];
-    emit_four_slots(levels, j, code0, len0, s_ac, run, c, l);
-    store_fused4(c, l, out, obase + j);
+// ---- warp-cooperative 4:1 emission (B1, B3) --------------------------------
+//
+// One lane per fused slot: the 16 lanes of a half-warp emit one block, lane
+// j its slots 4j .. 4j+3, so a warp emits two neighbouring blocks and each
+// of its five stores writes 32 consecutive int32 (one 128-byte line) where
+// a thread per block stores 4 B 64 B apart.  The zero run, the only thing
+// that ties a block's slots together, comes from a ballot instead of a
+// serial carry: slot k >= 1 with a nonzero level has run k - 1 - p, p the
+// last nonzero slot before k (the DC, slot 0, counts as nonzero), which is
+// what emit_ac's ++run / run = 0 computes, escapes included (runs up to 62).
+
+// The zero run in front of slot 4j of the half-warp's block (lane = the
+// lane in the warp, j = lane & 15; lv = levels 4j .. 4j+3).  Each lane
+// finds its last nonzero slot; a ballot marks the lanes that have one, and
+// the nearest such lane below j hands its slot over by a shuffle.  Call
+// with all 32 lanes of the warp.
+__device__ __forceinline__ int half_warp_run(const int lv[4], int lane) {
+  const int j = lane & 15;
+  int last = -1;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (lv[i] != 0 || 4 * j + i == 0) last = 4 * j + i;
+  const unsigned have = __ballot_sync(0xFFFFFFFFu, last >= 0) >> (lane & 16);
+  const unsigned below = have & ((1u << j) - 1u);  // lane 0 (the DC) is always in it
+  const int src = (lane & 16) + (below ? 31 - __clz(below) : 0);
+  const int prev = __shfl_sync(0xFFFFFFFFu, last, src);
+  return j == 0 ? 0 : 4 * j - 1 - prev;
+}
+
+// Four levels held in registers, as a `levels` functor of emit_four_slots.
+struct LaneLevels {
+  const int* lv;
+  __device__ __forceinline__ void operator()(int, int out[4]) const {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) out[i] = lv[i];
   }
+};
+
+// Fused slot j = lane & 15 of the half-warp's block: slots 4j .. 4j+3 of
+// levels lv emitted (code0 / len0: the DC slot, read on lane j = 0 only),
+// fused 4:1 and stored at fused slot o.  Call with all 32 lanes.
+__device__ __forceinline__ void emit_fused4_lane(const int lv[4], int lane, uint32_t code0,
+                                                 int len0, const uint32_t* s_ac,
+                                                 const FusedOut& out, size_t o) {
+  int run = half_warp_run(lv, lane);
+  uint32_t c[4];
+  int l[4];
+  emit_four_slots(LaneLevels{lv}, lane & 15, code0, len0, s_ac, run, c, l);
+  store_fused4(c, l, out, o);
 }
 
 // Exact 8:1 fusion (ops/bitpack.py::fuse8) of two 4:1-fused values: a

@@ -100,12 +100,14 @@ class CompatCore(nn.Module):
 
 
 def encode_compat(frames_rgb, quality: int = 12, *, device="cuda",
-                  debug_checks: bool = False) -> tuple[bytes, list[bytes]]:
+                  debug_checks: bool = False,
+                  batch_size: int | None = None) -> tuple[bytes, list[bytes]]:
     """Compat-mode encode on `device` (the CUDA kernels on "cuda", the
     default, their twins on "cpu"): (B, H, W, 3) u8 RGB frames, H >= 144
     and W >= 96 -> (mpeg bytes, per-frame .bit dumps), byte-exact against
     the reference C encoder.  debug_checks: see CompatCore.forward; a
-    violation raises RuntimeError."""
+    violation raises RuntimeError.  batch_size is accepted and ignored,
+    as the reference's is: the frames go to the device in one batch."""
     frames = np.ascontiguousarray(frames_rgb)
     _validate_frames(frames)
     bsz, h, w = frames.shape[:3]

@@ -335,7 +335,10 @@ class TorchMPEG1IntraEncoder:
     default, "cuda", which raises RuntimeError where CUDA is absent), their
     plain twins on the CPU (device="cpu").  The public API, keywords and
     errors are the reference `MPEG1IntraEncoder`'s, with `device` in place
-    of `backend`.
+    of `backend`.  Everything after max_slice_bytes is keyword-only: the
+    reference's fifth positional argument is `backend`, which the port does
+    not take, so a positional call meant for the reference raises
+    TypeError.
 
     dct_impl is the reference's: "auto" picks "f32" at quality >= 70 and
     "aan" below.  With "aan" the byte stream equals the reference's for
@@ -363,10 +366,10 @@ class TorchMPEG1IntraEncoder:
     the same, and a violation raises RuntimeError."""
 
     def __init__(self, quality: int = 50, frame_rate_code: int = 3,
-                 gop_size: int = 15, max_slice_bytes: int | None = None,
+                 gop_size: int = 15, max_slice_bytes: int | None = None, *,
                  dct_impl: str = "auto", color_range: str = "studio",
                  grow_slices: bool = True, debug_checks: bool = False,
-                 fuse: int = 4, pack: str = "fused4", *, device="cuda"):
+                 fuse: int = 4, pack: str = "fused4", device="cuda"):
         if color_range not in ("studio", "full"):
             raise ValueError(f"color_range must be 'studio' or 'full', got {color_range!r}")
         if dct_impl == "auto":

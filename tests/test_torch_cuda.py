@@ -55,18 +55,38 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _planes(rng, b, h, w, dev):
+def _planes(rng, b, h, w, dev, content="noise"):
+    """Random 4:2:0 planes: "noise"; "flat" (one value per frame and plane:
+    every AC level 0, only the DC and the EOB); "checker" (a checkerboard of
+    random contrast: the last zigzag level is nonzero, at q=100 an
+    escape)."""
     shapes = ((b, h, w), (b, h // 2, w // 2), (b, h // 2, w // 2))
-    return tuple(torch.from_numpy(rng.integers(0, 256, s, dtype=np.uint8)).to(dev)
-                 for s in shapes)
+    out = []
+    for s in shapes:
+        if content == "noise":
+            p = rng.integers(0, 256, s, dtype=np.uint8)
+        elif content == "flat":
+            p = np.broadcast_to(rng.integers(0, 256, (b, 1, 1)), s)
+        else:
+            yy, xx = np.indices(s[1:])
+            p = 128 + rng.integers(100, 128, (b, 1, 1)) * (((yy + xx) & 1) * 2 - 1)
+        out.append(torch.from_numpy(np.ascontiguousarray(p, dtype=np.uint8)).to(dev))
+    return tuple(out)
 
 
+# B1 and B3 emit a block with 16 lanes and a warp per two blocks, B1 in
+# groups of 128 blocks: 1920 (720 blocks a row) and 1408 (528) leave a
+# half-warp in the last group, 16 and 48 a short one, 4096 runs 12 groups.
+EMIT_SHAPES = [(2, 32, 48), (1, 48, 4096), (3, 16, 16), (1, 16, 1920), (2, 16, 1408)]
+
+
+@pytest.mark.parametrize("content", ["noise", "flat", "checker"])
 @pytest.mark.parametrize("quality", [5, 50, 69, 95])
-@pytest.mark.parametrize("shape", [(2, 32, 48), (1, 48, 4096), (3, 16, 16)])
-def test_vlc_kernel_matches_twin(cuda, quality, shape):
+@pytest.mark.parametrize("shape", EMIT_SHAPES)
+def test_vlc_kernel_matches_twin(cuda, quality, shape, content):
     rng = np.random.default_rng(quality * 7 + shape[2])
     core = TorchMPEG1IntraEncoder(quality=quality, dct_impl="aan", device=cuda).core
-    planes = _planes(rng, *shape, cuda)
+    planes = _planes(rng, *shape, cuda, content)
     got = cuda_vlc.vlc_fused4(*planes, core.qw, core.luts())
     want = cuda_vlc.vlc_fused4_plain(*planes, core.qw, core.luts())
     for g, w in zip(got, want):
@@ -120,12 +140,20 @@ def test_kernel_wrappers_reject_bad_input(cuda):
         cuda_pack.pack_fused4(v, v, v, v, v.t(), 16)
 
 
+@pytest.mark.parametrize("content", ["noise", "flat", "checker", "last-only"])
 @pytest.mark.parametrize("quality", [70, 85, 100])
-@pytest.mark.parametrize("shape", [(2, 32, 48), (1, 48, 4096), (3, 16, 16)])
-def test_levels_kernel_matches_twin(cuda, quality, shape):
+@pytest.mark.parametrize("shape", EMIT_SHAPES)
+def test_levels_kernel_matches_twin(cuda, quality, shape, content):
+    """"last-only": the noise's levels with every AC level but the last
+    cleared, so its run is 62 (an escape), of random size and sign."""
     rng = np.random.default_rng(quality * 7 + shape[2])
     core = TorchMPEG1IntraEncoder(quality=quality, device=cuda).core
-    levels, preds = plane_levels(*_planes(rng, *shape, cuda), core.qw, core.zigzag)
+    planes = _planes(rng, *shape, cuda, "noise" if content == "last-only" else content)
+    levels, preds = plane_levels(*planes, core.qw, core.zigzag)
+    if content == "last-only":
+        levels[..., 1:63] = 0
+        last = rng.integers(1, 256, levels.shape[:2]) * rng.choice([-1, 1], levels.shape[:2])
+        levels[..., 63] = torch.from_numpy(last.astype(np.int32)).to(cuda)
     got = cuda_vlc_levels.vlc_levels4(levels, preds, core.luts())
     want = cuda_vlc_levels.vlc_levels4_plain(levels, preds, core.luts())
     for g, w in zip(got, want):
