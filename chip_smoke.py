@@ -83,7 +83,11 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    1080p planes at q=50 and of the 1000 x 1400 noise at q=100 (escapes),
    each with the auto buffer, a 2,560 B buffer that overflows and a
    342,528 B one (global memory for K1 and K2): exact, and equal to B2 on
-   the same slots fused 4:1;
+   the same slots fused 4:1; K3 and K4 also on 1,088 rows of 46,080
+   codes whose lengths are all 0, all 1, all 32, or carry runs of empty
+   codes across their chunks and tiles, and on random rows of 4,095 codes
+   (no 16-byte loads), each with the auto buffer, one of exactly the
+   longest row's words and the 342,528 B one: exact;
 20. the generic route, TorchMPEG1IntraEncoder(pack=...) for "pallas1",
    "pallas3", "fused" and "fused2w": encode(), encode_from_planes() and a
    forced regrow at q=50 byte-equal to the CPU bytes of phase 4, and
@@ -212,6 +216,26 @@ def _event_ms(torch, fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_ms(torch, fn, iters: int):
+    """Device time per call of fn(): the kernel and memset records of
+    torch.profiler summed over `iters` calls, or None where the profiler
+    records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages())
+    except RuntimeError as err:
+        print(f"torch.profiler: {err}")
+        return None
+    return us / 1e3 / iters if us > 0 else None
 
 
 def _frames_per_s(torch, fn, n_frames: int, reps: int) -> tuple[float, float]:
@@ -884,6 +908,43 @@ def main() -> int:
     codes_hd, lens_hd = raw[f"16x1080p q={QUALITY}"]
     del raw
     torch.cuda.empty_cache()
+    # K3 and K4 edge cases at the full 1,088 x 46,080 (and an odd K of
+    # 4,095): every length 0, 1 or 32; runs of empty codes across their
+    # chunks (2,048 codes) and tiles (4,096); buffers of the auto size,
+    # exactly the longest row's words and 342,528 B
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    for content, k in (("zeros", 46080), ("ones", 46080), ("all32", 46080),
+                       ("zero-runs", 46080), ("random", 4095)):
+        n = lens_hd.shape[0]
+        if content in ("zeros", "ones", "all32"):
+            e_lens = torch.full((n, k), {"zeros": 0, "ones": 1, "all32": 32}[content],
+                                dtype=torch.int32, device=dev)
+        else:
+            e_lens = torch.randint(0 if content == "random" else 1, 31, (n, k), generator=gen,
+                                   dtype=torch.int32, device=dev)
+            if content == "zero-runs":
+                e_lens[:, 3000:9500] = 0
+                e_lens[:, 20000:30001] = 0
+        e_codes = cuda_vlc.to_i32_bits(
+            torch.randint(0, 1 << 32, (n, k), generator=gen, dtype=torch.int64, device=dev)
+            & ((1 << e_lens.long()) - 1))
+        used = max(-(-(38 + int(e_lens.sum(dim=1, dtype=torch.int64).max())) // 32), 1)
+        for bname, mw in (("auto buffer", msb_hd // 4), (f"{used}-word buffer (used)", used),
+                          ("342528 B buffer", 342528 // 4)):
+            want = cuda_pack.pack_raw_plain(e_codes, e_lens, mw, bit_offset=38)
+            over = int((want[1] > 32 * mw).sum())
+            for name in ("pack_windows", "pack_split"):
+                got = getattr(cuda_pack_split, name)(e_codes, e_lens, mw, bit_offset=38)
+                torch.cuda.synchronize()
+                err = _max_abs_err(torch, got, want)
+                raw_err[name] = max(raw_err[name], err)
+                print(f"{name} vs twin, {content}, {n} x {k}, {bname}: {over} over the buffer, "
+                      f"max_abs_err {err}")
+                if err != 0:
+                    raise AssertionError(f"{name} disagrees with its twin, {content}, {bname}")
+            del want, got
+        del e_codes, e_lens
+    torch.cuda.empty_cache()
 
     # ---- 20. the generic route: pack= ------------------------------------
     route_counts = {}
@@ -930,16 +991,18 @@ def main() -> int:
         work[name] = (8 * n_raw + n_rows_hd * (msb_hd + 4), OPS_PACK_SLOT * n_raw)
         print(f"{name} at 16x1080p q={QUALITY} ({n_raw} raw slots): kernel {times[name][0]:.4f} "
               f"ms, plain twin {times[name][1]:.4f} ms {tag}")
-    # K3 and K4 include the int32 prefix sum of the lengths (PyTorch)
-    ms = _event_ms(torch, lambda: torch.cumsum(lens_hd, dim=1, dtype=torch.int32), 20)
-    print(f"their cumsum of the lengths at 16x1080p: {ms:.4f} ms {tag}")
     # one frame: 68 slices for the card's 132 SMs, where spreading a slice
-    # over many blocks (K3, K4) could pay
+    # over many blocks (K3, K4) could pay; a call there is short enough
+    # that the event time also holds the host's launch cost, so the
+    # device time of its kernels and memsets is read from the profiler too
     mbh_hd = planes_hd[0].shape[1] // 16
     one = (codes_hd[:mbh_hd], lens_hd[:mbh_hd])
     for name, kernel, _ in raw_packs.values():
         ms = _event_ms(torch, lambda: kernel(*one, mw_hd), 20)
-        print(f"{name} at 1x1080p ({one[1].shape[0]} slices): kernel {ms:.4f} ms {tag}")
+        dms = ["not measured" if v is None else f"{v:.4f} ms" for v in (
+            _device_ms(torch, lambda: kernel(*args, mw_hd), 20) for args in (one, (codes_hd, lens_hd)))]
+        print(f"{name} at 1x1080p ({one[1].shape[0]} slices): kernel {ms:.4f} ms (events); device "
+              f"time (profiler records) {dms[0]}, at 16x1080p {dms[1]} {tag}")
     del codes_hd, lens_hd, one
     torch.cuda.empty_cache()
     for pack in raw_packs:

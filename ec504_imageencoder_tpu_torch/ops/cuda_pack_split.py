@@ -4,22 +4,26 @@ one slice spread over many CUDA blocks.
 One CUDA source (`csrc/pack_split.cu`) replaces two Pallas kernels of
 `ec504_imageencoder_tpu/ops/pallas_pack.py` that compute
 `bitpack.pack_words` of raw codes of <= 32 bits, with the bitcast to
-bytes behind them:
+bytes behind them.  Both take the bit offsets' prefix sum inside the
+kernels and write the bit counts themselves; nothing runs in front:
 
+* `pack_split` (K4) replaces `_fused_kernel` (`pack_words_fused`, the
+  reference's EC504_PACK=fused, B6g): one pass, one block per tile of
+  4096 codes of a row, a decoupled look-back over per-tile status words
+  for each tile's first bit; a tile stores the words only it touches and
+  ORs its two edge words into the row, which its launcher zeroes;
 * `pack_windows` (K3) replaces `_pack3_kernel` and its level-2 placement
-  (`pack_words_pallas3`, the reference's EC504_PACK=pallas3, B6f): each
-  chunk of codes packs into a private window, and each output tile
-  gathers the windows that cover it;
-* `pack_split` (K4) replaces `_fused_kernel` (`pack_words_fused`,
-  EC504_PACK=fused, B6g): blocks of codes OR their words straight into
-  the zeroed output row.
+  (`pack_words_pallas3`, EC504_PACK=pallas3, B6f): two levels and no
+  global atomics.  Level 1 sums each chunk's lengths; level 2 places a
+  chunk in shared memory and stores each word it owns (those whose last
+  bit it holds) once, the leading bits read back from the codes before.
 
-Both take the bit offsets from an int32 `torch.cumsum` of the lengths,
-the counterpart of the reference's XLA cumsum outside its kernels; the
-bit counts are its last column.  Any max_words works (the TPU kernels'
-multiple-of-128 and window limits were their tiling).  Their twin is
-`cuda_pack.pack_raw_plain`.  Each wrapper runs the twin for CPU tensors
-and its kernel for CUDA tensors; there is no other route.
+What bounds both on the H100 is bytes: 8 B read per code, the buffer
+written once (K4 zeroes it first; K3 reads the lengths twice).  Any
+max_words works (the TPU kernels' multiple-of-128 and window limits were
+their tiling).  Their twin is `cuda_pack.pack_raw_plain`.  Each wrapper
+runs the twin for CPU tensors and its kernel for CUDA tensors; there is
+no other route.
 """
 
 from __future__ import annotations
@@ -38,11 +42,12 @@ launches_split = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_IP = ctypes.POINTER(ctypes.c_int)
+_LLP = ctypes.POINTER(ctypes.c_longlong)
+_LAUNCH = [_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P]
 _ARGTYPES = {
-    "pack_windows_launch": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P],
-    "pack_split_launch": [_P, _P, _P, _I, _I, _I, _P, _I, _P],
-    "pack_windows_scratch": [_IP, _IP],
+    "pack_windows_launch": _LAUNCH,
+    "pack_split_launch": _LAUNCH,
+    "pack_split_scratch": [_I, _I, _LLP, _LLP],
 }
 
 
@@ -51,20 +56,26 @@ def load_kernel():
     return _build.load("pack_split", _ARGTYPES)
 
 
-def _scratch_geometry() -> tuple[int, int]:
-    """(K3's codes per chunk, words per window), as the library was built."""
-    chunk, window = ctypes.c_int(), ctypes.c_int()
-    load_kernel().pack_windows_scratch(ctypes.byref(chunk), ctypes.byref(window))
-    return chunk.value, window.value
-
-
-def _ends(lens, bit_offset: int):
-    """(n, K) int32 lengths -> (ends (n, K) int32: the inclusive prefix sum
-    plus bit_offset, nbits (n,) int32)."""
-    ends = torch.cumsum(lens, dim=1, dtype=torch.int32) + bit_offset
-    if lens.shape[1]:
-        return ends, ends[:, -1].contiguous()
-    return ends, torch.full((lens.shape[0],), bit_offset, dtype=torch.int32, device=lens.device)
+def _launch(entry: str, codes, lens, max_words: int, bit_offset: int):
+    """Run K3 ("pack_windows") or K4 ("pack_split") on CUDA tensors with
+    the scratch it needs: K3's chunk totals, K4's status words."""
+    lib = load_kernel()
+    n, k = lens.shape
+    dev = lens.device
+    windows_bytes, split_bytes = ctypes.c_longlong(), ctypes.c_longlong()
+    _build.check(lib, "pack_split", lib.pack_split_scratch(
+        n, k, ctypes.byref(windows_bytes), ctypes.byref(split_bytes)))
+    nbytes = (windows_bytes if entry == "pack_windows" else split_bytes).value
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+    seg = torch.empty((n, 4 * max_words), dtype=torch.uint8, device=dev)
+    nbits = torch.empty((n,), dtype=torch.int32, device=dev)
+    err = getattr(lib, f"{entry}_launch")(
+        codes.data_ptr(), lens.data_ptr(), n, k, max_words, bit_offset,
+        scratch.data_ptr(), seg.data_ptr(), nbits.data_ptr(),
+        dev.index, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(lib, "pack_split", err)
+    return seg, nbits
 
 
 def pack_windows(codes, lens, max_words: int, bit_offset: int = 38):
@@ -75,41 +86,18 @@ def pack_windows(codes, lens, max_words: int, bit_offset: int = 38):
     check_slots((codes, lens), max_words, bit_offset, "pack_windows")
     if lens.device.type == "cpu":
         return pack_raw_plain(codes, lens, max_words, bit_offset)
-    lib = load_kernel()
-    chunk, window = _scratch_geometry()
-    n, k = lens.shape
-    dev = lens.device
-    ends, nbits = _ends(lens, bit_offset)
-    nch = -(-k // chunk)
-    windows = torch.empty((n, nch, window), dtype=torch.int32, device=dev)
-    tiles = torch.empty((n, nch), dtype=torch.int32, device=dev)
-    seg = torch.empty((n, 4 * max_words), dtype=torch.uint8, device=dev)
-    err = lib.pack_windows_launch(
-        codes.data_ptr(), lens.data_ptr(), ends.data_ptr(), n, k, max_words,
-        windows.data_ptr(), tiles.data_ptr(), seg.data_ptr(),
-        dev.index, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(lib, "pack_split", err)
+    out = _launch("pack_windows", codes, lens, max_words, bit_offset)
     launches_windows += 1
-    return seg, nbits
+    return out
 
 
 def pack_split(codes, lens, max_words: int, bit_offset: int = 38):
-    """K4: `pack_windows`'s function, many blocks per slice placing with
-    global atomics."""
+    """K4: `pack_windows`'s function in one pass, many blocks per slice
+    chained by a decoupled look-back."""
     global launches_split
     check_slots((codes, lens), max_words, bit_offset, "pack_split")
     if lens.device.type == "cpu":
         return pack_raw_plain(codes, lens, max_words, bit_offset)
-    lib = load_kernel()
-    n, k = lens.shape
-    dev = lens.device
-    ends, nbits = _ends(lens, bit_offset)
-    seg = torch.empty((n, 4 * max_words), dtype=torch.uint8, device=dev)
-    err = lib.pack_split_launch(
-        codes.data_ptr(), lens.data_ptr(), ends.data_ptr(), n, k, max_words,
-        seg.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(lib, "pack_split", err)
+    out = _launch("pack_split", codes, lens, max_words, bit_offset)
     launches_split += 1
-    return seg, nbits
+    return out

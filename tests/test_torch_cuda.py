@@ -366,25 +366,32 @@ RAW_KERNELS = {"pallas1": (cuda_pack, "pack_raw", "launches_raw"),
                "fused2w": (cuda_pack, "pack_pairs", "launches_pairs")}
 
 
-def _raw_slots(rng, n, k, dev):
-    """(n, k) raw codes of up to 30 bits (so that fuse4 takes them too),
-    masked to their lengths, and their int32 lengths; 40% empty."""
-    lens = rng.integers(0, 31, (n, k))
-    lens[rng.random((n, k)) < 0.4] = 0
-    codes = rng.integers(0, 1 << 30, (n, k)) & ((1 << lens) - 1)
-    return tuple(torch.from_numpy(a.astype(np.int32)).to(dev) for a in (codes, lens))
+def _raw_slots(rng, n, k, dev, content="random"):
+    """(n, k) raw codes masked to their lengths, and their int32 lengths:
+    "random" up to 30 bits (so that fuse4 takes them too), 40% empty;
+    "zeros", "ones" and "all32" every length 0, 1 or 32; "zero-runs"
+    1..30 bits with runs of 3,000-9,000 empty codes, across K3's chunks
+    (2,048 codes) and K4's tiles (4,096)."""
+    if content == "random":
+        lens = rng.integers(0, 31, (n, k))
+        lens[rng.random((n, k)) < 0.4] = 0
+    elif content == "zero-runs":
+        lens = rng.integers(1, 31, (n, k))
+        for r in range(n):
+            for s in rng.integers(0, k, 2):
+                lens[r, s:s + rng.integers(3000, 9000)] = 0
+    else:
+        lens = np.full((n, k), {"zeros": 0, "ones": 1, "all32": 32}[content])
+    codes = rng.integers(0, 1 << 32, (n, k)) & ((1 << lens) - 1)
+    return tuple(torch.from_numpy(a.astype(np.uint32).view(np.int32)).to(dev)
+                 for a in (codes, lens))
 
 
-@pytest.mark.parametrize("k", [46080, 4095])
-@pytest.mark.parametrize("max_words", [5888, 7, 1000, 342528 // 4])
-def test_raw_pack_kernels_match_twins(cuda, max_words, k):
-    """K1-K4 against their twins and against B2 on the 4:1 fusion of the
-    same slots: a 1080p row's 46,080 slots and an odd count; 7 words
-    overflows every slice, 1000 is no multiple of 128, 342528 B exceeds
-    shared memory (K1, K2 place in global memory)."""
-    codes, lens = _raw_slots(np.random.default_rng(max_words + k), 5, k, cuda)
+def _raw_kernels_equal_twin(codes, lens, max_words, b2=False):
+    """K1-K4 byte-equal to the twin, bit counts included; with b2 also B2
+    on the 4:1 fusion of the same slots."""
     want = cuda_pack.pack_raw_plain(codes, lens, max_words, bit_offset=38)
-    if k % 4 == 0:
+    if b2:
         fused = tuple(cuda_vlc.to_i32_bits(t) for t in bitpack.fuse4(codes, lens))
         via_b2 = cuda_pack.pack_fused4(*fused, max_words, bit_offset=38)
         assert torch.equal(via_b2[0], want[0]) and torch.equal(via_b2[1], want[1])
@@ -392,8 +399,57 @@ def test_raw_pack_kernels_match_twins(cuda, max_words, k):
         seg, nbits = getattr(mod, fn)(codes, lens, max_words, bit_offset=38)
         assert torch.equal(nbits, want[1]), pack
         assert torch.equal(seg, want[0]), pack
+    return want
+
+
+@pytest.mark.parametrize("content", ["random", "zeros", "ones", "all32", "zero-runs"])
+@pytest.mark.parametrize("k", [46080, 4095, 1, 100, 4096, 4097])
+@pytest.mark.parametrize("max_words", [5888, 7, 1000, "used", 342528 // 4])
+def test_raw_pack_kernels_match_twins(cuda, max_words, k, content):
+    """K1-K4 against their twins (and, for "random" at K % 4 == 0, B2 on
+    the 4:1 fusion of the same slots): a 1080p row's 46,080 slots, an odd
+    count, a row shorter than one tile, exactly one K4 tile and one code
+    past it; 7 words overflows every slice, 1000 is no multiple of 128 and
+    ends inside a tile, "used" is exactly the longest row's words, 342528 B
+    exceeds shared memory (K1, K2 place in global memory)."""
+    rng = np.random.default_rng(k + (max_words if isinstance(max_words, int) else 3))
+    codes, lens = _raw_slots(rng, 5, k, cuda, content)
+    if max_words == "used":
+        max_words = max(-(-(38 + int(lens.sum(dim=1).max())) // 32), 1)
+    want = _raw_kernels_equal_twin(codes, lens, max_words, b2=content == "random" and k % 4 == 0)
     pairs = cuda_pack.pack_pairs_plain(codes, lens, max_words, bit_offset=38)
     assert torch.equal(pairs[0], want[0]) and torch.equal(pairs[1], want[1])
+
+
+@pytest.mark.parametrize("shape", [(1088, 4608), (3, 0), (0, 4096)],
+                         ids=["many-tiles", "k0", "n0"])
+def test_raw_pack_kernels_edge_shapes(cuda, shape):
+    """1,088 rows of 4,608 codes (many K3 chunks and K4 tiles in flight),
+    empty rows (zeros and the bit offset) and no rows."""
+    codes, lens = _raw_slots(np.random.default_rng(shape[1]), *shape, cuda)
+    mw = 342528 // 4 if shape[1] == 0 else 2945
+    want = _raw_kernels_equal_twin(codes, lens, mw)
+    if shape == (3, 0):
+        assert (want[1] == 38).all() and not want[0].any()
+
+
+def test_split_packs_repeat_and_run_on_a_side_stream(cuda):
+    """K3 and K4 twice back to back and once on a side stream give the
+    same bytes: their scratch (chunk totals, status words and the tile
+    counter) is set anew by every launch."""
+    codes, lens = _raw_slots(np.random.default_rng(77), 64, 46080, cuda)
+    side = torch.cuda.Stream(cuda)
+    for fn in (cuda_pack_split.pack_windows, cuda_pack_split.pack_split):
+        first = fn(codes, lens, 5888, bit_offset=38)
+        second = fn(codes, lens, 5888, bit_offset=38)
+        side.wait_stream(torch.cuda.current_stream(cuda))
+        with torch.cuda.stream(side):
+            third = fn(codes, lens, 5888, bit_offset=38)
+        torch.cuda.current_stream(cuda).wait_stream(side)
+        torch.cuda.synchronize(cuda)
+        want = cuda_pack.pack_raw_plain(codes, lens, 5888, bit_offset=38)
+        for got in (first, second, third):
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("pack", list(RAW_KERNELS))
