@@ -53,7 +53,10 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
 10. times: B3, B4b and B4a against their twins, q=85
    encode()/encode_from_planes() and compat encode_compat() in frames/s;
 11. kernel B6a (vlc_raw, the sanitizer's raw slots) against its twin on
-   the 16 x 1080p planes at q=50 and on the 1000 x 1400 noise: exact;
+   phase 2's planes (16 x 1080p, the 1000 x 1400 noise padded to 1408,
+   2 x 1080p flat planes) at q=50, on the noise and the checkerboards at
+   q=100 (escapes) and on checkerboards whose AAN levels at q=5 are the
+   last slot alone (runs of 62): exact;
 12. kernel B5 (lut_lookup) against its twin on the AC rank indices of the
    16 x 1080p q=85 levels and on random indices in and around both
    packed tables: exact;
@@ -68,10 +71,10 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    not; a slot violation injected on the card raises RuntimeError;
 15. times: B6a, B5 and the checked B2 against their twins, and the
    debug_checks encode()/encode_from_planes() in frames/s;
-16. kernel B6b (vlc_fused8) against its twin on the 16 x 1080p planes and
-   the 1000 x 1400 noise, and kernel B6c (pack_fused8) against its twin
-   on those slots with the auto buffer, an overflowing buffer and one too
-   large for shared memory: exact;
+16. kernel B6b (vlc_fused8) against its twin on phase 11's planes, and
+   kernel B6c (pack_fused8) against its twin on the slots of the 16 x
+   1080p planes and the noise at q=50 with the auto buffer, an
+   overflowing buffer and one too large for shared memory: exact;
 17. the 8:1-fusion path: TorchMPEG1IntraEncoder(quality=50, fuse=8)
    encode() and encode_from_planes() on the 16 x 1080p frames and a
    forced regrow, byte-equal to the CPU bytes of phase 4; B6b and B6c
@@ -178,8 +181,10 @@ def _pad_planes(np, y, cb, cr):
 
 def _pattern_planes(np, rng, content: str, n: int):
     """n 1080p frames of 4:2:0 planes, padded: "flat" (one value per frame
-    and plane, so every AC level is 0) or "checker" (a checkerboard of
-    random contrast, so the last zigzag level is nonzero)."""
+    and plane, so every AC level is 0), "checker" (a checkerboard of
+    random contrast, so the last zigzag level is nonzero) or "last" (a
+    checkerboard of contrast 100..110, whose AAN levels at q=5 are the
+    last slot alone)."""
     h = HEIGHT + -HEIGHT % 16
     out = []
     for s in ((n, h, WIDTH), (n, h // 2, WIDTH // 2), (n, h // 2, WIDTH // 2)):
@@ -187,7 +192,8 @@ def _pattern_planes(np, rng, content: str, n: int):
             p = np.broadcast_to(rng.integers(0, 256, (n, 1, 1)), s)
         else:
             yy, xx = np.indices(s[1:])
-            p = 128 + rng.integers(100, 128, (n, 1, 1)) * (((yy + xx) & 1) * 2 - 1)
+            hi = 128 if content == "checker" else 111
+            p = 128 + rng.integers(100, hi, (n, 1, 1)) * (((yy + xx) & 1) * 2 - 1)
         out.append(np.ascontiguousarray(p, dtype=np.uint8))
     return out
 
@@ -353,10 +359,9 @@ def main() -> int:
 
     # ---- 1. build -------------------------------------------------------
     t0 = time.perf_counter()
-    _build.build(["vlc_fused4", "pack_fused4", "vlc_levels4", "vlc_compat", "vlc_raw",
-                  "lut_lookup", "pack_split"])
-    for mod in (cuda_vlc, cuda_pack, cuda_vlc_levels, cuda_vlc_compat, cuda_vlc_raw, cuda_lut,
-                cuda_pack_split):
+    _build.build(["vlc_fused4", "pack_fused4", "vlc_levels4", "vlc_compat", "lut_lookup",
+                  "pack_split"])
+    for mod in (cuda_vlc, cuda_pack, cuda_vlc_levels, cuda_vlc_compat, cuda_lut, cuda_pack_split):
         mod.load_kernel()
     cold_build_s = time.perf_counter() - t0
     for name, (secs, log) in sorted(_build.build_info.items()):
@@ -515,7 +520,7 @@ def main() -> int:
                             (f"2x{oh}x{ow} noise q=100, last AC level only",
                              (last_only, noise_in[1])))
     )
-    del noise_in, ac, last_only, pattern_in, planes_pattern
+    del noise_in, ac, last_only, pattern_in
 
     # ---- 7. B4a and B4b against their twins ------------------------------
     gold_frames, gold_mpeg, gold_md5 = _golden(np)
@@ -645,10 +650,28 @@ def main() -> int:
     del big, compat_planes
 
     # ---- 11. B6a against its twin ----------------------------------------
+    # the planes kernels' cases (name, planes, qw, phase 2's slots key):
+    # phase 2's, escapes at q=100, and runs of 62 from checkerboards whose
+    # AAN levels at q=5 are the last slot alone
+    q5 = TorchMPEG1IntraEncoder(quality=5, device=dev).core
+    last62 = tuple(torch.from_numpy(p).to(dev)
+                   for p in _pattern_planes(np, np.random.default_rng(SEED + 11), "last", 2))
+    lv62 = plane_levels(*last62, q5.qw, q5.zigzag, dct_impl="aan")[0]
+    if lv62[..., 1:63].any() or not lv62[..., 63].all():
+        raise AssertionError("the q=5 checkerboards' levels are not the last slot alone")
+    del lv62
+    plane_cases = (
+        (f"16x1080p q={QUALITY}", planes_hd, core.qw, "16x1080p"),
+        (f"2x{oh}x{ow} noise q={QUALITY}", planes_odd, core.qw, f"2x{oh}x{ow} noise"),
+        (f"2x{oh}x{ow} noise q=100", planes_odd, q100.qw, None),
+        (f"2x1080p flat q={QUALITY}", planes_pattern["flat"], core.qw, None),
+        ("2x1080p checker q=100", planes_pattern["checker"], q100.qw, None),
+        ("2x1080p last slot only q=5", last62, q5.qw, None),
+    )
     b6a_err = max(
         _check_twin(torch, f"B6a vlc_raw vs twin, {name}", cuda_vlc_raw.vlc_raw,
-                    cuda_vlc_raw.vlc_raw_plain, (*planes, core.qw, luts))
-        for name, planes in ((f"16x1080p q={QUALITY}", planes_hd), (f"2x{oh}x{ow} noise", planes_odd))
+                    cuda_vlc_raw.vlc_raw_plain, (*planes, qw, luts))
+        for name, planes, qw, _ in plane_cases
     )
 
     # ---- 12. B5 against its twin -----------------------------------------
@@ -794,9 +817,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     b6b_err = 0
     slots8 = {}
-    for name, planes in (("16x1080p", planes_hd), (f"2x{oh}x{ow} noise", planes_odd)):
-        got = cuda_vlc.vlc_fused8(*planes, core.qw, luts)
-        want = cuda_vlc.vlc_fused8_plain(*planes, core.qw, luts)
+    for name, planes, qw, key in plane_cases:
+        got = cuda_vlc.vlc_fused8(*planes, qw, luts)
+        want = cuda_vlc.vlc_fused8_plain(*planes, qw, luts)
         torch.cuda.synchronize()
         err = _max_abs_err(torch, got, want)
         b6b_err = max(b6b_err, err)
@@ -804,8 +827,9 @@ def main() -> int:
               f"max flen {int(got[1].max())}, max_abs_err {err}")
         if err != 0:
             raise AssertionError(f"B6b disagrees with its twin on {name}")
-        slots8[name] = got
-    del want
+        if key is not None:
+            slots8[key] = got
+    del want, plane_cases, planes_pattern, last62
     b6c_err = 0
     for name, key, mw, must_overflow in (
         ("16x1080p, auto buffer (shared memory)", "16x1080p", msb_hd // 4, False),
@@ -1026,7 +1050,7 @@ def main() -> int:
          debug_launches, b4a_err),
         ("vlc_compat_fused4", "vlc_compat.cu", "ec504_imageencoder_tpu/ops/pallas_vlc.py:859",
          compat_launches, b4b_err),
-        ("vlc_raw", "vlc_raw.cu", "ec504_imageencoder_tpu/ops/pallas_vlc.py:468",
+        ("vlc_raw", "vlc_fused4.cu", "ec504_imageencoder_tpu/ops/pallas_vlc.py:468",
          debug_counts[QUALITY], b6a_err),
         ("lut_lookup", "lut_lookup.cu", "ec504_imageencoder_tpu/ops/mxu_lut.py:249",
          debug_counts[HQ_QUALITY], b5_err),

@@ -1,8 +1,8 @@
-// Device code shared by the kernels that read padded 4:2:0 planes directly
-// (vlc_fused4.cu, B1; vlc_raw.cu, B6a): where an 8x8 block of a slice row
-// starts, its quantized DC from the pixel sum, the integer AAN DCT of its
-// pixels and the ISO intra quantization + zigzag into shared memory (a
-// per-thread column, or B1's swizzled block-major layout).
+// Device code of the kernels that read padded 4:2:0 planes directly
+// (vlc_fused4.cu: B1, B6b, B6a): where an 8x8 block of a slice row starts,
+// its quantized DC from the pixel sum, the integer AAN DCT of its pixels
+// and the ISO intra quantization + zigzag into a swizzled block-major
+// layout in shared memory.
 //
 // Every function mirrors the PyTorch twins (ops/cuda_vlc.py::blockize,
 // ops/dct.py::aan_dct, ops/quant.py::quantize_intra, ops/zigzag.py).
@@ -69,15 +69,7 @@ __device__ __forceinline__ void quantize_zigzag(const int x[8][8], const int* s_
     }
 }
 
-// The same into a column of shared memory: scan position k at
-// col[k * kStride] (s_zpos maps to the scan position).
-template <int kStride>
-__device__ __forceinline__ void quantize_to_column(const int x[8][8], const int* s_qw,
-                                                   const int* s_zpos, int* col) {
-  quantize_zigzag(x, s_qw, s_zpos, [col](int k, int lv) { col[k * kStride] = lv; });
-}
-
-// A group's levels for the warp-cooperative emission (B1): block-major, 64
+// A group's levels for the warp-cooperative emission: block-major, 64
 // words per block, XOR-swizzled so that both of its accesses are free of
 // bank conflicts.  Level k of the group's block t lies at word
 // t * 64 + (swizzle_slot(k) ^ (t & 31)).
@@ -93,26 +85,20 @@ __device__ __forceinline__ void quantize_to_column(const int x[8][8], const int*
 // move the warp's 512 B in the same four shared-memory wavefronts.
 __device__ __forceinline__ int swizzle_slot(int k) { return k ^ ((k >> 5) << 1); }
 
+// The word of level 4j + i of the group's block t (among its 64 words),
+// as the cooperative read finds it.
+__device__ __forceinline__ int swizzled_word(int t, int j, int i) {
+  return (4 * j + i) ^ (t & 31) ^ ((j >> 3) << 1);
+}
+
 // The levels of block t of a group (its 64 words at blk), for the
 // cooperative read: lane j gets levels 4j .. 4j+3.
 struct SwizzledLevels {
   const int* blk;
   int t;
   __device__ __forceinline__ void operator()(int j, int lv[4]) const {
-    const int s = (t & 31) ^ ((j >> 3) << 1);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) lv[i] = blk[(4 * j + i) ^ s];
-  }
-};
-
-// The zigzag levels of a thread's block, in its column of shared memory:
-// slot k at col[k * kStride].
-template <int kStride>
-struct ColumnLevels {
-  const int* col;
-  __device__ __forceinline__ void operator()(int j, int lv[4]) const {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) lv[i] = col[(4 * j + i) * kStride];
+    for (int i = 0; i < 4; ++i) lv[i] = blk[swizzled_word(t, j, i)];
   }
 };
 

@@ -1,9 +1,9 @@
 // Device code shared by the VLC kernels (vlc_fused4.cu, vlc_levels4.cu,
-// vlc_compat.cu, vlc_raw.cu): the reference's integer AAN forward DCT,
-// the VLC table layout in shared memory, the correct-mode DC and AC slot
-// emission, the exact 4:1 and 8:1 slot fusions with their stream-order
-// stores (a thread per block, and the warp-cooperative 4:1 emission of B1
-// and B3), and the unfused (raw) slot store.
+// vlc_compat.cu): the reference's integer AAN forward DCT, the VLC table
+// layout in shared memory, the correct-mode DC and AC slot emission, the
+// exact 4:1 and 8:1 slot fusions with their stream-order stores (a thread
+// per block for B4b; warp-cooperative for B1, B3 and B6b), and the one-word
+// form of a raw slot (B6a).
 //
 // Every function mirrors a function of the PyTorch twins (ops/dct.py,
 // ops/vlc_device.py, ops/bitpack.py::fuse4 and fuse8), which mirror the
@@ -290,65 +290,55 @@ __device__ __forceinline__ void fuse8_value(const uint32_t a[4], const uint32_t 
   }
 }
 
-// The 64 slots of one correct-mode block, 8:1-fused: fused slot k (0..7)
-// of the block holds slots 8k .. 8k+7; its word p goes to
-// out[p * plane + obase + k] (p = 0..7, most significant first) and its
-// length to out[8 * plane + obase + k].  levels, code0 and len0 as for
-// emit_four_slots.
-template <class Levels>
-__device__ __forceinline__ void emit_block_fused8(const Levels& levels, uint32_t code0,
-                                                  int len0, const uint32_t* s_ac,
-                                                  int32_t* out, size_t plane, size_t obase) {
-  int run = 0;
-  for (int k = 0; k < 8; ++k) {
-    uint32_t c[4], a[4], b[4], w[8];
-    int l[4];
-    emit_four_slots(levels, 2 * k, code0, len0, s_ac, run, c, l);
-    const int la = fuse4_value(c, l, a);
-    emit_four_slots(levels, 2 * k + 1, code0, len0, s_ac, run, c, l);
-    const int lb = fuse4_value(c, l, b);
-    fuse8_value(a, b, lb, w);
-    int32_t* o = out + obase + k;
+// ---- warp-cooperative 8:1 emission (B6b) --------------------------------
+//
+// B1's lanes, then a lane-pair fusion: lanes 2k and 2k+1 of a half-warp
+// hold the 4:1 values of slots 8k .. 8k+3 and 8k+4 .. 8k+7, swap them with
+// one exchange and both form fused-8 slot k.  The even lane stores words
+// 0-3 and the length, the odd lane words 4-7: each store of the warp writes
+// 16 consecutive int32 (two blocks of 8 fused slots) into each of two
+// planes, whole 32-byte sectors.
+
+// Fused-8 slot (lane & 15) >> 1 of the half-warp's block: emit_fused4_lane's
+// emission, the pair exchange and the 8:1 fusion; word p of the value goes
+// to out[p * plane + o], its length to out[8 * plane + o].  Call with all
+// 32 lanes.
+__device__ __forceinline__ void emit_fused8_lane(const int lv[4], int lane, uint32_t code0,
+                                                 int len0, const uint32_t* s_ac, int32_t* out,
+                                                 size_t plane, size_t o) {
+  int run = half_warp_run(lv, lane);
+  uint32_t c[4], v[4], p[4];
+  int l[4];
+  emit_four_slots(LaneLevels{lv}, lane & 15, code0, len0, s_ac, run, c, l);
+  const int len = fuse4_value(c, l, v);
 #pragma unroll
-    for (int p = 0; p < 8; ++p) o[p * plane] = (int32_t)w[p];
-    o[8 * plane] = la + lb;
+  for (int i = 0; i < 4; ++i) p[i] = __shfl_xor_sync(0xFFFFFFFFu, v[i], 1);
+  const int plen = __shfl_xor_sync(0xFFFFFFFFu, len, 1);
+  const bool odd = lane & 1;  // the pair's second half: b, the lower bits
+  uint32_t a[4], b[4], w[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    a[i] = odd ? p[i] : v[i];
+    b[i] = odd ? v[i] : p[i];
   }
+  fuse8_value(a, b, odd ? len : plen, w);
+  int32_t* const dst = out + (odd ? 4 * plane : 0) + o;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) dst[i * plane] = (int32_t)(odd ? w[4 + i] : w[i]);
+  if (!odd) out[8 * plane + o] = len + plen;
 }
 
-// The 64 slots of one correct-mode block, unfused: slot k's code and
-// length go to codes[k * stride] and lens[k * stride].  `levels`, code0
-// and len0 as for emit_four_slots.  The block loop stays rolled and the
-// pointers advance, so the 64 stores need no 64 addresses in registers.
-template <class Levels>
-__device__ __forceinline__ void emit_block_raw(const Levels& levels, uint32_t code0, int len0,
-                                               const uint32_t* s_ac, int32_t* codes,
-                                               int32_t* lens, size_t stride) {
-  int run = 0;
-#pragma unroll 1
-  for (int j = 0; j < 16; ++j) {
-    int lv[4];
-    levels(j, lv);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int k = 4 * j + i;
-      uint32_t c;
-      int l;
-      if (k == 0) {
-        c = code0;
-        l = len0;
-      } else {
-        c = emit_ac(lv[i], run, s_ac, l);
-        if (k == 63) {  // end of block '10'
-          c = (c << 2) | 2u;
-          l += 2;
-        }
-      }
-      *codes = (int32_t)c;
-      *lens = l;
-      codes += stride;
-      lens += stride;
-    }
-  }
+// ---- raw slots (B6a) -------------------------------------------------------
+//
+// A slot's code and length in one 32-bit word, the length as a marker bit
+// above the code: code | 1 << len.  Exact because the emission never sets
+// a code bit at or above the slot's length and no slot is longer than 30
+// bits (a 28-bit escape with the EOB).  B6a parks a block's 64 slots so in
+// the shared words that held its levels, then stores them slot-major.
+__device__ __forceinline__ uint32_t slot_word(uint32_t code, int len) {
+  return code | (1u << len);
 }
+
+__device__ __forceinline__ int slot_word_len(uint32_t word) { return 31 - __clz(word); }
 
 }  // namespace vlc

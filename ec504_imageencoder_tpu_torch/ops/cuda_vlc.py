@@ -1,8 +1,9 @@
 """Kernels B1 and B6b: 4:2:0 planes -> 4:1- or 8:1-fused VLC slots in
 stream order.
 
-One CUDA kernel template (`csrc/vlc_fused4.cu`) replaces the Pallas
-kernels `ec504_imageencoder_tpu/ops/pallas_vlc.py::_vlc_blocks_fused_kernel`
+One CUDA kernel template (`csrc/vlc_fused4.cu`, which also holds B6a's
+raw slots, `cuda_vlc_raw`) replaces the Pallas kernels
+`ec504_imageencoder_tpu/ops/pallas_vlc.py::_vlc_blocks_fused_kernel`
 (B1, `vlc_fused4`) and `_vlc_blocks_fused8_kernel` (B6b, `vlc_fused8`,
 the reference's EC504_FUSE=8 route), each with the blockize in front of
 it and `fused_stack_to_stream` / `fused8_stack_to_stream` behind it.
@@ -43,7 +44,8 @@ MAX_WIDTH = 4096  # the kernel keeps one slice's DC values in shared memory
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LAUNCH = [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P]
-_ARGTYPES = {"vlc_fused4_launch": _LAUNCH, "vlc_fused8_launch": _LAUNCH}
+_ARGTYPES = {"vlc_fused4_launch": _LAUNCH, "vlc_fused8_launch": _LAUNCH,
+             "vlc_raw_launch": [*_LAUNCH[:13], _P, _I, _P]}
 
 
 class Luts(NamedTuple):

@@ -1,7 +1,8 @@
 """Kernel B6a: 4:2:0 planes -> raw VLC slots and the DCT-magnitude guard.
 
 The raw-slot route of the sanitizer (`debug_checks`) for the integer AAN
-DCT.  The CUDA kernel (`csrc/vlc_raw.cu`) replaces the Pallas kernel
+DCT.  The CUDA kernel (B1's template in `csrc/vlc_fused4.cu`, loaded by
+`cuda_vlc.load_kernel`) replaces the Pallas kernel
 `ec504_imageencoder_tpu/ops/pallas_vlc.py::_vlc_blocks_kernel` (launched
 by `vlc_from_blocks_tpu`) together with the blockize in front of it, and
 carries the DCT-magnitude guard of the reference's `_vlc_blocks_core`
@@ -14,28 +15,15 @@ there is no other route.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from ec504_imageencoder_tpu_torch.ops import _build
+from ec504_imageencoder_tpu_torch.ops import _build, cuda_vlc
 from ec504_imageencoder_tpu_torch.ops.cuda_vlc import Luts, block_slots, check_planes, to_i32_bits
 
 # kernel launches since the last reset (launches for CPU tensors excluded)
 launches = 0
 
 FMAX = 1 << 19  # the guard: the reference's quantizer is exact below this |F|
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_ARGTYPES = {
-    "vlc_raw_launch": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
-}
-
-
-def load_kernel():
-    """Build (at first use) and load the kernel's shared library."""
-    return _build.load("vlc_raw", _ARGTYPES)
 
 
 def vlc_raw_plain(y, cb, cr, qw, luts: Luts):
@@ -65,17 +53,16 @@ def vlc_raw(y, cb, cr, qw, luts: Luts):
     tensors = (y, cb, cr, qw, *luts)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("vlc_raw needs contiguous tensors")
-    lib = load_kernel()
+    lib = cuda_vlc.load_kernel()
     bsz, h, w = y.shape
     r, nb = bsz * (h // 16), (w // 16) * 6
     out = torch.empty((2, r, 64, nb), dtype=torch.int32, device=y.device)
-    dct_viol = torch.zeros((r,), dtype=torch.int32, device=y.device)
+    dct_viol = torch.zeros((r,), dtype=torch.int32, device=y.device)  # the kernel adds to it
     err = lib.vlc_raw_launch(
         *(t.data_ptr() for t in (y, cb, cr)), bsz, h, w,
-        *(t.data_ptr() for t in (qw, *luts)),
-        out[0].data_ptr(), out[1].data_ptr(), dct_viol.data_ptr(),
+        *(t.data_ptr() for t in (qw, *luts)), out.data_ptr(), dct_viol.data_ptr(),
         y.device.index, torch.cuda.current_stream(y.device).cuda_stream,
     )
-    _build.check(lib, "vlc_raw", err)
+    _build.check(lib, "vlc_fused4", err)
     launches += 1
     return out[0], out[1], dct_viol

@@ -59,7 +59,8 @@ def _planes(rng, b, h, w, dev, content="noise"):
     """Random 4:2:0 planes: "noise"; "flat" (one value per frame and plane:
     every AC level 0, only the DC and the EOB); "checker" (a checkerboard of
     random contrast: the last zigzag level is nonzero, at q=100 an
-    escape)."""
+    escape); "last" (a checkerboard of contrast 100..110: at q=5 the last
+    zigzag level is the only nonzero AC level, a run of 62, an escape)."""
     shapes = ((b, h, w), (b, h // 2, w // 2), (b, h // 2, w // 2))
     out = []
     for s in shapes:
@@ -69,14 +70,16 @@ def _planes(rng, b, h, w, dev, content="noise"):
             p = np.broadcast_to(rng.integers(0, 256, (b, 1, 1)), s)
         else:
             yy, xx = np.indices(s[1:])
-            p = 128 + rng.integers(100, 128, (b, 1, 1)) * (((yy + xx) & 1) * 2 - 1)
+            hi = 128 if content == "checker" else 111
+            p = 128 + rng.integers(100, hi, (b, 1, 1)) * (((yy + xx) & 1) * 2 - 1)
         out.append(torch.from_numpy(np.ascontiguousarray(p, dtype=np.uint8)).to(dev))
     return tuple(out)
 
 
-# B1 and B3 emit a block with 16 lanes and a warp per two blocks, B1 in
-# groups of 128 blocks: 1920 (720 blocks a row) and 1408 (528) leave a
-# half-warp in the last group, 16 and 48 a short one, 4096 runs 12 groups.
+# B1, B6a, B6b and B3 emit a block with 16 lanes and a warp per two blocks,
+# B1, B6a and B6b in groups of 128 blocks: 1920 (720 blocks a row) and 1408
+# (528) leave a half-warp in the last group, 16 and 48 a short one, 4096
+# runs 12 groups.
 EMIT_SHAPES = [(2, 32, 48), (1, 48, 4096), (3, 16, 16), (1, 16, 1920), (2, 16, 1408)]
 
 
@@ -224,12 +227,14 @@ def test_new_wrappers_reject_bad_input(cuda):
 
 # ---- the sanitizer's kernels: B6a, B5 and B2's checked form ---------------
 
-@pytest.mark.parametrize("quality", [5, 50, 95])
-@pytest.mark.parametrize("shape", [(2, 32, 48), (1, 48, 4096), (3, 16, 16)])
-def test_raw_kernel_matches_twin(cuda, quality, shape):
+@pytest.mark.parametrize("content", ["noise", "flat", "checker", "last"])
+@pytest.mark.parametrize("quality", [5, 50, 95, 100])
+@pytest.mark.parametrize("shape", EMIT_SHAPES)
+def test_raw_kernel_matches_twin(cuda, quality, shape, content):
+    """B6a: at q=100 noise gives 28-bit escapes, at q=5 "last" runs of 62."""
     rng = np.random.default_rng(quality * 11 + shape[2])
     core = TorchMPEG1IntraEncoder(quality=quality, dct_impl="aan", device=cuda).core
-    planes = _planes(rng, *shape, cuda)
+    planes = _planes(rng, *shape, cuda, content)
     got = cuda_vlc_raw.vlc_raw(*planes, core.qw, core.luts())
     want = cuda_vlc_raw.vlc_raw_plain(*planes, core.qw, core.luts())
     for g, w in zip(got, want):
@@ -306,17 +311,45 @@ def test_debug_checks_encoder(cuda, monkeypatch):
 
 # ---- the 8:1-fusion path: B6b and B6c -------------------------------------
 
-@pytest.mark.parametrize("quality", [5, 50, 95])
-@pytest.mark.parametrize("shape", [(2, 32, 48), (1, 48, 4096), (3, 16, 16)])
-def test_fused8_kernel_matches_twin(cuda, quality, shape):
+@pytest.mark.parametrize("content", ["noise", "flat", "checker", "last"])
+@pytest.mark.parametrize("quality", [5, 50, 95, 100])
+@pytest.mark.parametrize("shape", EMIT_SHAPES)
+def test_fused8_kernel_matches_twin(cuda, quality, shape, content):
     rng = np.random.default_rng(quality * 13 + shape[2])
     core = TorchMPEG1IntraEncoder(quality=quality, dct_impl="aan", device=cuda).core
-    planes = _planes(rng, *shape, cuda)
+    planes = _planes(rng, *shape, cuda, content)
     words, flens = cuda_vlc.vlc_fused8(*planes, core.qw, core.luts())
     want_w, want_l = cuda_vlc.vlc_fused8_plain(*planes, core.qw, core.luts())
     assert torch.equal(flens, want_l)
     for g, w in zip(words, want_w):
         assert torch.equal(g, w)
+
+
+def _flat(out):
+    """B6b's (words, flens) or B6a's (codes, lens, guard) as one list."""
+    return [t for x in out for t in (x if isinstance(x, tuple) else (x,))]
+
+
+def test_vlc_kernels_repeat_and_run_on_a_side_stream(cuda):
+    """B6a and B6b twice back to back and once on a side stream give the
+    twins' outputs (B6a adds its guard counts to a buffer its wrapper
+    zeroes at each call)."""
+    planes = _planes(np.random.default_rng(78), 3, 64, 1408, cuda)
+    core = TorchMPEG1IntraEncoder(quality=50, dct_impl="aan", device=cuda).core
+    args = (*planes, core.qw, core.luts())
+    side = torch.cuda.Stream(cuda)
+    for fn, twin in ((cuda_vlc_raw.vlc_raw, cuda_vlc_raw.vlc_raw_plain),
+                     (cuda_vlc.vlc_fused8, cuda_vlc.vlc_fused8_plain)):
+        first, second = fn(*args), fn(*args)
+        side.wait_stream(torch.cuda.current_stream(cuda))
+        with torch.cuda.stream(side):
+            third = fn(*args)
+        torch.cuda.current_stream(cuda).wait_stream(side)
+        torch.cuda.synchronize(cuda)
+        want = _flat(twin(*args))
+        for got in (first, second, third):
+            for g, w in zip(_flat(got), want, strict=True):
+                assert torch.equal(g, w)
 
 
 def _fused8_slots(rng, n, kf, dev):
