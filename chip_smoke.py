@@ -40,7 +40,9 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    exact;
 7. kernels B4a (vlc_compat_slots) and B4b (vlc_compat_fused4) against
    their twins on the 30 golden frames and on 480 frames of 400 x 600
-   (16 copies of the golden sequence): exact;
+   (16 copies of the golden sequence), and at q=12 and q=100 on 1 golden
+   frame, 30 noise frames of odd width and 30 flat and checkerboard
+   frames (B4b's last group of 128 blocks holds 68, 120 or all): exact;
 8. the q=85 path (f32 DCT): encode() and encode_from_planes() on the 16 x
    1080p frames byte-equal to the CPU path; the same bytes for 16 frames
    at once, 2 x 8 and 16 x 1 (first_frame_index), and with TF32 matmuls
@@ -50,8 +52,9 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    .bit dump md5s on the 30 golden frames, also with debug_checks (raw
    slots through B4a, then B2's checked form), and equals the CPU path's
    encode_compat on the 480 frames; the B4b and B4a launch counts went up;
-10. times: B3, B4b and B4a against their twins, q=85
-   encode()/encode_from_planes() and compat encode_compat() in frames/s;
+10. times: B3, B4b and B4a against their twins (B4b and B4a also as
+   the profiler's device time), q=85 encode()/encode_from_planes() and
+   compat encode_compat() in frames/s;
 11. kernel B6a (vlc_raw, the sanitizer's raw slots) against its twin on
    phase 2's planes (16 x 1080p, the 1000 x 1400 noise padded to 1408,
    2 x 1080p flat planes) at q=50, on the noise and the checkerboards at
@@ -90,7 +93,10 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    codes whose lengths are all 0, all 1, all 32, or carry runs of empty
    codes across their chunks and tiles, and on random rows of 4,095 codes
    (no 16-byte loads), each with the auto buffer, one of exactly the
-   longest row's words and the 342,528 B one: exact;
+   longest row's words and the 342,528 B one: exact; K1 also on 1,088
+   rows of 511, 512 and 513 codes (its tile is 512) of random, all-1 and
+   all-32 lengths, with a buffer of the used words, one of 7 words
+   (overflows) and the 342,528 B one: exact;
 20. the generic route, TorchMPEG1IntraEncoder(pack=...) for "pallas1",
    "pallas3", "fused" and "fused2w": encode(), encode_from_planes() and a
    forced regrow at q=50 byte-equal to the CPU bytes of phase 4, and
@@ -530,14 +536,41 @@ def main() -> int:
     compat_planes = {}
     for name, fr in (("30 golden frames", gold_frames), (f"{len(compat_frames)} frames", compat_frames)):
         compat_planes[name] = tuple(torch.from_numpy(p).to(dev) for p in rgb_to_ycbcr_exact(fr))
+    # B4b's flat groups of 128 blocks (324 a frame): 1 frame leaves a last
+    # group of 68, 30 frames one of 120, 480 none; at q=12 and q=100
+    # (escapes), on 1 golden frame, 30 noise frames of odd width 101, and
+    # 30 flat frames (the DC alone) and checkerboards (the last zigzag
+    # level nonzero) of 144 x 96
+    sq100 = torch.from_numpy(scale_quantization_matrix(100).astype(np.int32)).to(dev)
+    erng = np.random.default_rng(SEED + 7)
+    edge_planes = {"1 golden frame": tuple(p[:1] for p in compat_planes["30 golden frames"]),
+                   "30 noise frames 150x101": tuple(
+                       torch.from_numpy(erng.integers(0, 256, (30, 150, 101), dtype=np.uint8)).to(dev)
+                       for _ in range(3))}
+    yy, xx = np.indices((144, 96))
+    for content in ("flat", "checker"):
+        if content == "flat":
+            arrays = [np.broadcast_to(erng.integers(0, 256, (30, 1, 1)), (30, 144, 96))
+                      for _ in range(3)]
+        else:
+            arrays = [128 + erng.integers(100, 128, (30, 1, 1)) * (((yy + xx) & 1) * 2 - 1)
+                      for _ in range(3)]
+        edge_planes[f"30 {content} frames 144x96"] = tuple(
+            torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint8)).to(dev) for a in arrays)
     b4a_err = b4b_err = 0
-    for name, planes in compat_planes.items():
-        b4a_err = max(b4a_err, _check_twin(
-            torch, f"B4a vlc_compat_slots vs twin, {name}", cuda_vlc_compat.vlc_compat_slots,
-            cuda_vlc_compat.vlc_compat_slots_plain, (*planes, sq, cluts)))
-        b4b_err = max(b4b_err, _check_twin(
-            torch, f"B4b vlc_compat_fused4 vs twin, {name}", cuda_vlc_compat.vlc_compat_fused4,
-            cuda_vlc_compat.vlc_compat_fused4_plain, (*planes, sq, cluts)))
+    for name, planes, qs in (*((n, p, ((COMPAT_QUALITY, sq),)) for n, p in compat_planes.items()),
+                             *((n, p, ((COMPAT_QUALITY, sq), (100, sq100)))
+                               for n, p in edge_planes.items())):
+        for q, qm in qs:
+            b4a_err = max(b4a_err, _check_twin(
+                torch, f"B4a vlc_compat_slots vs twin, {name} q={q}",
+                cuda_vlc_compat.vlc_compat_slots, cuda_vlc_compat.vlc_compat_slots_plain,
+                (*planes, qm, cluts)))
+            b4b_err = max(b4b_err, _check_twin(
+                torch, f"B4b vlc_compat_fused4 vs twin, {name} q={q}",
+                cuda_vlc_compat.vlc_compat_fused4, cuda_vlc_compat.vlc_compat_fused4_plain,
+                (*planes, qm, cluts)))
+    del edge_planes
 
     # ---- 8. the q=85 path (f32 DCT) --------------------------------------
     reset_launches()
@@ -638,6 +671,12 @@ def main() -> int:
                  else f"{len(compat_frames)} frames")
         print(f"{name} at {where}: kernel {times[name][0]:.4f} ms, "
               f"plain twin {times[name][1]:.4f} ms {tag}")
+        if name != "vlc_levels4":
+            # a compat launch is short enough that the wrapper's host cost
+            # can show in the event time: the profiler's device time too
+            dms = _device_ms(torch, lambda: kernel(*args), 20)
+            print(f"{name} at {where}: device time (profiler records) "
+                  f"{'not measured' if dms is None else f'{dms:.4f} ms'} {tag}")
     for label, fn, n in (
         (f"encode 16x1080p q={HQ_QUALITY}", lambda: hq.encode(frames), BATCH),
         (f"encode_from_planes 16x1080p q={HQ_QUALITY}",
@@ -968,6 +1007,30 @@ def main() -> int:
                     raise AssertionError(f"{name} disagrees with its twin, {content}, {bname}")
             del want, got
         del e_codes, e_lens
+    # K1 at its tile edges (512 codes a tile): one code short, one tile,
+    # one code past it (not a multiple of 4: scalar loads)
+    for content, k in itertools.product(("random", "ones", "all32"), (511, 512, 513)):
+        n = lens_hd.shape[0]
+        if content == "random":
+            e_lens = torch.randint(0, 33, (n, k), generator=gen, dtype=torch.int32, device=dev)
+        else:
+            e_lens = torch.full((n, k), {"ones": 1, "all32": 32}[content], dtype=torch.int32,
+                                device=dev)
+        e_codes = cuda_vlc.to_i32_bits(
+            torch.randint(0, 1 << 32, (n, k), generator=gen, dtype=torch.int64, device=dev)
+            & ((1 << e_lens.long()) - 1))
+        used = max(-(-(38 + int(e_lens.sum(dim=1, dtype=torch.int64).max())) // 32), 1)
+        for mw in (used, 7, 342528 // 4):
+            want = cuda_pack.pack_raw_plain(e_codes, e_lens, mw, bit_offset=38)
+            got = cuda_pack.pack_raw(e_codes, e_lens, mw, bit_offset=38)
+            torch.cuda.synchronize()
+            err = _max_abs_err(torch, got, want)
+            raw_err["pack_raw"] = max(raw_err["pack_raw"], err)
+            print(f"pack_raw vs twin, {content}, {n} x {k}, {mw}-word buffer: "
+                  f"{int((want[1] > 32 * mw).sum())} over the buffer, max_abs_err {err}")
+            if err != 0:
+                raise AssertionError(f"pack_raw disagrees with its twin, {content}, {k} codes")
+        del e_codes, e_lens, want, got
     torch.cuda.empty_cache()
 
     # ---- 20. the generic route: pack= ------------------------------------

@@ -22,6 +22,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -45,7 +47,8 @@ lut_lookup_kernel(const int32_t* __restrict__ idx, long long n,
 extern "C" int lut_lookup_launch(const void* idx, long long n, const void* table, int m,
                                  void* out, int device, void* stream) {
   if (n < 0 || m < 0 || m > kMaxTable) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return (int)err;
   if (n == 0) return (int)cudaSuccess;
   int sms = 0;

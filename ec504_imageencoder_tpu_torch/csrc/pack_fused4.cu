@@ -18,18 +18,19 @@
 // limits on max_words (a multiple of 128, at least 384): those were its
 // tiling.
 //
-// K1 (kWords = 1, pack_raw_launch) replaces two Pallas kernels that compute
-// `bitpack.pack_words` of raw codes of <= 32 bits: `_pack_kernel`
-// (`pack_words_pallas`, the reference's EC504_PACK=pallas1) and
-// `_pack2_kernel` (`pack_words_pallas2`, no caller).  They differ only in
-// their MXU formulation: f32 half-words against a one-hot window, or bf16
-// byte planes with the carry words added at the same window position and
-// shifted afterwards; neither has a meaning on a GPU, where a code is two
-// shifted words ORed in place.  K2 (Pairs, pack_pairs_launch) replaces
-// `_fused2w_kernel` (`pack_words_fused2w`, EC504_PACK=fused2w) and the
-// `_fuse2_32` in front of it: slot i of a row is the raw pair (2i, 2i+1),
-// fused in registers as it is loaded (V = c1 2^l2 | c2, <= 64 bits) and
-// placed from a 96-bit window.
+// K1 (pack_raw_launch, its own kernel beside the template) replaces two
+// Pallas kernels that compute `bitpack.pack_words` of raw codes of <= 32
+// bits: `_pack_kernel` (`pack_words_pallas`, the reference's
+// EC504_PACK=pallas1) and `_pack2_kernel` (`pack_words_pallas2`, no
+// caller).  They differ only in their MXU formulation: f32 half-words
+// against a one-hot window, or bf16 byte planes with the carry words added
+// at the same window position and shifted afterwards; neither has a
+// meaning on a GPU, where a code is two shifted words ORed in place.  K2
+// (Pairs, pack_pairs_launch) replaces `_fused2w_kernel`
+// (`pack_words_fused2w`, EC504_PACK=fused2w) and the `_fuse2_32` in front
+// of it: slot i of a row is the raw pair (2i, 2i+1), fused in registers as
+// it is loaded (V = c1 2^l2 | c2, <= 64 bits) and placed from a 96-bit
+// window.
 //
 // What bounds it on the H100: bytes.  Per slice it reads 4 (kWords + 1) B
 // per fused slot (230 KB at 1080p for either fusion) and writes the slice
@@ -48,6 +49,26 @@
 // output row in global memory instead.  A final coalesced pass byte-swaps
 // the words into stream byte order.
 //
+// K1 keeps that design (one block per slice, the same buffer regimes) but
+// not the template's chunk loop, whose every chunk of 512 codes waited on
+// two dependent global loads (the lengths, then the codes of the non-empty
+// slots) and three barriers, 90 chunks in series per slice at 16 x 1080p:
+// latency, not bytes.  K1 walks tiles of
+// kRawV = 4 consecutive codes per thread, the lengths and the codes of a
+// tile read together with one 16-byte load each (a warp's load covers 512
+// contiguous bytes), and the loads of tile t + 1 go out before the scan and
+// placement of tile t, so each tile's one barrier overlaps a load in
+// flight.  The block scan is a warp shuffle scan of each thread's sum plus
+// the warp totals, double-buffered in shared memory so that one barrier per
+// tile suffices; every thread carries the running bit offset in a
+// register.  At 128 threads and 40 registers, 9 blocks (each with its 23.6
+// KB buffer at 1080p) share an SM, and a 16 x 1080p batch's 1,088 slices
+// run in one wave on 132 SMs: 0.16 ms against the chunk loop's 0.41 (CUDA
+// events, NVIDIA H100 80GB HBM3, 700.00 W; the bound is 0.13).  Other geometries measured no better
+// (tools/k1_variants.py): 8 or 16 codes per thread, or 256 and 512
+// threads.  A row whose length count or base is not a multiple of 16 bytes
+// loads scalars.
+//
 // B2's checked form (kChecks, entry point with a non-null `viol`) replaces
 // the debug outputs of `_fused4_kernel` (`pack_words_fused4_core(...,
 // debug=True)`): per slice it counts fused lengths outside [0, 128] and
@@ -65,6 +86,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "device_guard.cuh"
 
 namespace {
 
@@ -215,6 +238,117 @@ pack_fused_kernel(const Src src, int max_words, int bit_offset, uint32_t* __rest
   for (int i = tid; i < max_words; i += kThreads) out[i] = __byte_perm(buf[i], 0u, 0x0123);
 }
 
+// ---- K1: raw codes, whole tiles per thread --------------------------------
+
+constexpr int kRawThreads = 128;
+constexpr int kRawWarps = kRawThreads / 32;
+constexpr int kRawMinBlocks = 9;               // blocks per SM (<= 56 registers)
+constexpr int kRawV = 4;                       // consecutive codes per thread
+constexpr int kRawTile = kRawThreads * kRawV;  // codes per tile
+
+// One thread's kRawV codes and lengths of a tile.
+struct RawCodes {
+  int l[kRawV];
+  uint32_t c[kRawV];
+};
+
+// The codes i .. i + kRawV - 1 of a row of k (codes and lens point at the
+// row); codes past the row read as length 0.  kVec: k % 4 == 0 and both
+// rows 16-byte aligned, so each group of 4 is one int4 of each array, all
+// of it in the row or none (i is a multiple of kRawV).
+template <bool kVec>
+__device__ __forceinline__ void load_raw(const int32_t* __restrict__ codes,
+                                         const int32_t* __restrict__ lens, int k, int i,
+                                         RawCodes& r) {
+  if constexpr (kVec) {
+#pragma unroll
+    for (int h = 0; h < kRawV; h += 4) {
+      int4 a = make_int4(0, 0, 0, 0), b = make_int4(0, 0, 0, 0);
+      if (i + h < k) {
+        a = __ldg(reinterpret_cast<const int4*>(lens + i + h));
+        b = __ldg(reinterpret_cast<const int4*>(codes + i + h));
+      }
+      r.l[h] = a.x; r.l[h + 1] = a.y; r.l[h + 2] = a.z; r.l[h + 3] = a.w;
+      r.c[h] = (uint32_t)b.x; r.c[h + 1] = (uint32_t)b.y;
+      r.c[h + 2] = (uint32_t)b.z; r.c[h + 3] = (uint32_t)b.w;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < kRawV; ++e) {
+      const bool in = i + e < k;
+      r.l[e] = in ? __ldg(lens + i + e) : 0;
+      r.c[e] = in ? (uint32_t)__ldg(codes + i + e) : 0u;
+    }
+  }
+}
+
+// OR a code of length 1..32 at bit offset off into buf: shifted to the top
+// of the 64-bit window of words off >> 5 and the next, by 64 - (off & 31) -
+// len bits (in [1, 63]).  Words at or past max_words are dropped.
+__device__ __forceinline__ void place_raw(uint32_t code, int len, int off, uint32_t* buf,
+                                          int max_words) {
+  if (len <= 0) return;
+  const int word = off >> 5;
+  const int sh = 64 - (off & 31) - len;
+  const uint32_t w0 = sh >= 32 ? code << (sh - 32) : code >> (32 - sh);
+  const uint32_t w1 = sh >= 32 ? 0u : code << sh;
+  if (w0 && (unsigned)word < (unsigned)max_words) atomicOr(&buf[word], w0);
+  if (w1 && (unsigned)(word + 1) < (unsigned)max_words) atomicOr(&buf[word + 1], w1);
+}
+
+template <bool kShared, bool kVec>
+__global__ void __launch_bounds__(kRawThreads, kRawMinBlocks)
+pack_raw_kernel(const int32_t* __restrict__ codes, const int32_t* __restrict__ lens, int k,
+                int max_words, int bit_offset, uint32_t* __restrict__ seg_words,
+                int32_t* __restrict__ nbits) {
+  extern __shared__ uint32_t s_buf[];
+  __shared__ int s_warp[2][kRawWarps];  // warp totals of tiles 2m and 2m + 1
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row = blockIdx.x;
+  codes += (size_t)row * k;
+  lens += (size_t)row * k;
+  uint32_t* out = seg_words + (size_t)row * max_words;
+  uint32_t* buf = kShared ? s_buf : out;
+
+  RawCodes cur, nxt;
+  load_raw<kVec>(codes, lens, k, kRawV * tid, cur);
+  for (int i = tid; i < max_words; i += kRawThreads) buf[i] = 0u;
+  int carry = bit_offset;  // the row's bits before the tile, in every thread
+  const int ntiles = (k + kRawTile - 1) / kRawTile;
+  for (int t = 0; t < ntiles; ++t) {
+    // tile t + 1 in flight (past the row: no load) while tile t is placed
+    load_raw<kVec>(codes, lens, k, (t + 1) * kRawTile + kRawV * tid, nxt);
+    int sum = 0;
+#pragma unroll
+    for (int e = 0; e < kRawV; ++e) sum += cur.l[e];
+    const int incl = warp_inclusive_scan(sum, lane);
+    if (lane == 31) s_warp[t & 1][warp] = incl;
+    // the warp totals are complete (and, at t = 0, the buffer zeroed); the
+    // other half of s_warp was last read before the previous barrier
+    __syncthreads();
+    int before = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < kRawWarps; ++w) {
+      const int v = s_warp[t & 1][w];
+      before += w < warp ? v : 0;
+      total += v;
+    }
+    int off = carry + before + incl - sum;
+    carry += total;
+#pragma unroll
+    for (int e = 0; e < kRawV; ++e) {
+      place_raw(cur.c[e], cur.l[e], off, buf, max_words);
+      off += cur.l[e];
+    }
+    cur = nxt;
+  }
+  __syncthreads();  // every code placed
+  if (tid == 0) nbits[row] = carry;
+  // stream byte order: word w's most significant byte first
+  for (int i = tid; i < max_words; i += kRawThreads) out[i] = __byte_perm(buf[i], 0u, 0x0123);
+}
+
 template <class Src, bool kShared, bool kChecks>
 cudaError_t launch(const Src& src, int n, int max_words, int bit_offset, void* seg, void* nbits,
                    void* viol, size_t bytes, cudaStream_t s) {
@@ -229,6 +363,17 @@ cudaError_t launch(const Src& src, int n, int max_words, int bit_offset, void* s
   return cudaGetLastError();
 }
 
+// Whether a slice buffer of max_words words (and static_bytes of other
+// shared memory) fits the device's opt-in shared memory per block: the
+// buffer regime of a launch.
+cudaError_t fits_shared(int device, int max_words, size_t static_bytes, bool* shared) {
+  int optin = 0;
+  const cudaError_t err =
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  *shared = (size_t)max_words * 4 + static_bytes <= (size_t)optin;
+  return err;
+}
+
 // The buffer regime (shared or global memory) and the form (checked when
 // viol is non-null; B2 only) of one launch; k is the slots (or raw codes)
 // per row.
@@ -236,15 +381,14 @@ template <class Src>
 int dispatch(const Src& src, int n, int k, int max_words, int bit_offset, void* seg, void* nbits,
              void* viol, int device, void* stream) {
   if (n < 0 || k < 0 || max_words <= 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return (int)err;
   if (n == 0) return (int)cudaSuccess;
-  int optin = 0;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  bool shared = false;
+  err = fits_shared(device, max_words, (kWarps + 2) * sizeof(int), &shared);
   if (err != cudaSuccess) return (int)err;
   const size_t bytes = (size_t)max_words * 4;
-  const size_t static_bytes = (kWarps + 2) * sizeof(int);
-  const bool shared = bytes + static_bytes <= (size_t)optin;
   cudaStream_t s = (cudaStream_t)stream;
   if (viol == nullptr) {
     err = shared ? launch<Src, true, false>(src, n, max_words, bit_offset, seg, nbits, viol,
@@ -261,6 +405,22 @@ int dispatch(const Src& src, int n, int k, int max_words, int bit_offset, void* 
   }
   return (int)err;
 }
+
+template <bool kShared, bool kVec>
+cudaError_t launch_raw(const int32_t* codes, const int32_t* lens, int n, int k, int max_words,
+                       int bit_offset, void* seg, void* nbits, cudaStream_t s) {
+  const size_t bytes = kShared ? (size_t)max_words * 4 : 0;
+  if constexpr (kShared) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        pack_raw_kernel<kShared, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+  }
+  pack_raw_kernel<kShared, kVec><<<n, kRawThreads, bytes, s>>>(
+      codes, lens, k, max_words, bit_offset, (uint32_t*)seg, (int32_t*)nbits);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
 }  // namespace
 
@@ -293,8 +453,25 @@ extern "C" int pack_fused8_launch(const void* w0, const void* w1, const void* w2
 extern "C" int pack_raw_launch(const void* codes, const void* lens, int n, int k, int max_words,
                                int bit_offset, void* seg, void* nbits, int device,
                                void* stream) {
-  const Slots<1> src{{(const int32_t*)codes}, (const int32_t*)lens, k};
-  return dispatch(src, n, k, max_words, bit_offset, seg, nbits, nullptr, device, stream);
+  if (n < 0 || k < 0 || max_words <= 0) return (int)cudaErrorInvalidValue;
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.error();
+  if (err != cudaSuccess) return (int)err;
+  if (n == 0) return (int)cudaSuccess;
+  bool shared = false;
+  err = fits_shared(device, max_words, sizeof(int[2][kRawWarps]), &shared);
+  if (err != cudaSuccess) return (int)err;
+  const bool vec = k % 4 == 0 && aligned16(codes) && aligned16(lens);
+  const int32_t* c = (const int32_t*)codes;
+  const int32_t* l = (const int32_t*)lens;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (shared)
+    err = vec ? launch_raw<true, true>(c, l, n, k, max_words, bit_offset, seg, nbits, s)
+              : launch_raw<true, false>(c, l, n, k, max_words, bit_offset, seg, nbits, s);
+  else
+    err = vec ? launch_raw<false, true>(c, l, n, k, max_words, bit_offset, seg, nbits, s)
+              : launch_raw<false, false>(c, l, n, k, max_words, bit_offset, seg, nbits, s);
+  return (int)err;
 }
 
 // K2: the same raw codes, fused 2:1 as they are loaded.

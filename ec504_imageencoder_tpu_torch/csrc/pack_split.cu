@@ -59,6 +59,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -457,7 +459,8 @@ extern "C" int pack_windows_launch(const void* codes, const void* lens, int n, i
                                    void* nbits, int device, void* stream) {
   if (n < 0 || k < 0 || max_words <= 0 || bit_offset < 0 || !aligned16(seg))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return (int)err;
   if (n == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
@@ -487,7 +490,8 @@ extern "C" int pack_split_launch(const void* codes, const void* lens, int n, int
                                  int device, void* stream) {
   if (n < 0 || k < 0 || max_words <= 0 || bit_offset < 0 || !aligned16(seg) || !aligned16(scratch))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return (int)err;
   if (n == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;

@@ -24,23 +24,40 @@
 // What bounds it on the H100: nothing big.  A frame is 54 x 6 = 324
 // blocks; per block it reads 64 B of pixels and writes 320 B (fused) or
 // 512 B (raw) of slots.  The work is the DCT, 64 integer divisions and the
-// 64-step sequential emission: integer issue rate and latency.
+// emission: integer instruction throughput and latency.
 //
-// Design: one CUDA block per slice row, one thread per 8x8 block (54 of
-// 64 threads busy), the pixels read straight from the planes.  As in B1,
-// the DCT lives in registers and the zigzag levels in a per-thread column
-// of shared memory; the tables are copied to shared memory once per block.
+// B4a: one CUDA block per slice row, one thread per 8x8 block (54 of 64
+// threads busy), the pixels read straight from the planes, the DCT in
+// registers, the zigzag levels in a per-thread column of shared memory and
+// a 64-step serial emission; its slot-major stores are coalesced.
+//
+// B4b: compat blocks are independent (an absolute DC, a macroblock header
+// that depends only on n % 6, the EOB always in slot 63), and its output
+// index (row * 54 + n) * 16 + j is the flat block index g = row * 54 + n
+// times 16, plus j.  So a CUDA block of 128 threads takes 128 consecutive
+// flat blocks, across slice rows and frames: a thread per block for the
+// DCT, the division and the zigzag into B1's swizzled block-major levels
+// (planes_dct.cuh), then B1's emission lanes (vlc_emit.cuh): a half-warp
+// per block, lane j emitting slots 4j .. 4j+3 and storing their 4:1 value
+// at g * 16 + j, so each warp store writes 32 consecutive int32.  The
+// compat rules come from ballots instead of a serial carry
+// (compat_lane_slots).  Before it: one CUDA block per slice row, a thread
+// per block from DCT to store, 64 B between neighbouring threads' stores,
+// 0.21 ms for 480 frames (NVIDIA H100 80GB HBM3, 700.00 W).
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+#include "planes_dct.cuh"
 #include "vlc_emit.cuh"
 
 namespace {
 
 using namespace vlc;
 
-constexpr int kThreads = 64;
+constexpr int kThreads = 64;           // B4a: threads of a CUDA block, 54 busy
 constexpr int kSlices = 6;           // column bands of the crop
 constexpr int kMbs = 9;              // macroblocks per band
 constexpr int kNB = kMbs * 6;        // 8x8 blocks per slice row
@@ -127,14 +144,14 @@ __device__ __forceinline__ uint32_t emit_ac_compat(int lvl, int& run, bool& drop
   return (base << 8) | lo;
 }
 
-template <bool kFused>
+// B4a: a thread per block, raw slots stored slot-major.
 __global__ void __launch_bounds__(kThreads)
-vlc_compat_kernel(const uint8_t* __restrict__ y, const uint8_t* __restrict__ cb,
-                  const uint8_t* __restrict__ cr, int H, int W,
-                  const int32_t* __restrict__ scaled_q, const int32_t* __restrict__ zigzag,
-                  const int32_t* __restrict__ ac_code, const int32_t* __restrict__ ac_len,
-                  const int32_t* __restrict__ dc_code, const int32_t* __restrict__ dc_len,
-                  int32_t* __restrict__ codes, int32_t* __restrict__ lens, FusedOut out) {
+vlc_compat_slots_kernel(const uint8_t* __restrict__ y, const uint8_t* __restrict__ cb,
+                        const uint8_t* __restrict__ cr, int H, int W,
+                        const int32_t* __restrict__ scaled_q, const int32_t* __restrict__ zigzag,
+                        const int32_t* __restrict__ ac_code, const int32_t* __restrict__ ac_len,
+                        const int32_t* __restrict__ dc_code, const int32_t* __restrict__ dc_len,
+                        int32_t* __restrict__ codes, int32_t* __restrict__ lens) {
   __shared__ int s_lv[64][kThreads];
   __shared__ uint32_t s_ac[kAcRuns * kAcLevels];  // code | len << 16
   __shared__ uint32_t s_dcc[2 * kDcSizes];        // code | len << 16, [luma][size]
@@ -191,34 +208,141 @@ vlc_compat_kernel(const uint8_t* __restrict__ y, const uint8_t* __restrict__ cb,
         l[i] += 2;
       }
     }
-    if constexpr (kFused) {
-      store_fused4(c, l, out, ((size_t)row * kNB + n) * 16 + j);
-    } else {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const size_t o = ((size_t)row * 64 + 4 * j + i) * kNB + n;
-        codes[o] = (int32_t)c[i];
-        lens[o] = l[i];
-      }
+    for (int i = 0; i < 4; ++i) {
+      const size_t o = ((size_t)row * 64 + 4 * j + i) * kNB + n;
+      codes[o] = (int32_t)c[i];
+      lens[o] = l[i];
     }
   }
 }
 
-template <bool kFused>
-int launch(const void* y, const void* cb, const void* cr, int batch, int H, int W,
-           const void* scaled_q, const void* zigzag, const void* ac_code, const void* ac_len,
-           const void* dc_code, const void* dc_len, int32_t* codes, int32_t* lens,
-           const FusedOut& out, int device, void* stream) {
-  if (batch < 0 || H < kCropH || W < kCropW) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (batch == 0) return (int)cudaSuccess;
-  vlc_compat_kernel<kFused><<<batch * kSlices, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)y, (const uint8_t*)cb, (const uint8_t*)cr, H, W,
-      (const int32_t*)scaled_q, (const int32_t*)zigzag, (const int32_t*)ac_code,
-      (const int32_t*)ac_len, (const int32_t*)dc_code, (const int32_t*)dc_len, codes, lens,
-      out);
-  return (int)cudaGetLastError();
+// ---- B4b: flat groups of 128 blocks, B1's emission lanes ------------------
+
+constexpr int kGroup = 128;  // threads of a CUDA block: the flat blocks of its group
+
+// Slots 4j .. 4j+3 of the half-warp's block under the compat rules (lane =
+// the lane in the warp, j = lane & 15; lv = levels 4j .. 4j+3, lv[0] of
+// lane 0 the DC; code0 / len0: the DC slot, read on lane 0 only), emitted
+// into c and l as emit_ac_compat's serial carry would, from two ballots:
+//  - the zero run in front of slot 4j: a slot counts as nonzero if its
+//    level is (the DC only if dc != 0, unlike half_warp_run, where the DC
+//    always counts), and the nearest lane below with one hands its last
+//    such slot p over by a shuffle: run = 4j - 1 - p, p = -1 if none;
+//  - the Q5 drop: a trigger is a slot k >= 1 that is nonzero after a
+//    nonzero slot k - 1 (for the lane's first slot, lane j - 1's slot 3,
+//    by a shuffle up); every slot from the block's first trigger on emits
+//    nothing.  A lane with a trigger below it starts dropped; its own
+//    first trigger turns emit_ac_compat's flag on (a run of 0 before a
+//    nonzero level).
+// The EOB '10' still goes into slot 63 when it is dropped.  Call with all
+// 32 lanes.
+__device__ __forceinline__ void compat_lane_slots(const int lv[4], int lane, uint32_t code0,
+                                                  int len0, const uint32_t* s_ac, uint32_t c[4],
+                                                  int l[4]) {
+  const int j = lane & 15;
+  const unsigned below_j = (1u << j) - 1u;
+  int last = -1;
+  bool trig = false;
+  bool prev_nz = __shfl_up_sync(0xFFFFFFFFu, lv[3] != 0, 1) && j > 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const bool nz = lv[i] != 0;
+    if (nz) last = 4 * j + i;
+    trig = trig || (nz && prev_nz);  // slot 0 has no prev_nz: lane 0's is false
+    prev_nz = nz;
+  }
+  const unsigned have = (__ballot_sync(0xFFFFFFFFu, last >= 0) >> (lane & 16)) & below_j;
+  const int src = (lane & 16) + (have ? 31 - __clz(have) : 0);
+  const int prev = __shfl_sync(0xFFFFFFFFu, last, src);
+  int run = 4 * j - 1 - (have ? prev : -1);
+  bool dropped = ((__ballot_sync(0xFFFFFFFFu, trig) >> (lane & 16)) & below_j) != 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int k = 4 * j + i;
+    if (k == 0) {
+      c[i] = code0;
+      l[i] = len0;
+      run = lv[0] == 0;  // a zero DC is a zero before slot 1
+      continue;
+    }
+    c[i] = emit_ac_compat(lv[i], run, dropped, s_ac, l[i]);
+    if (k == 63) {  // end of block '10'
+      c[i] = (c[i] << 2) | 2u;
+      l[i] += 2;
+    }
+  }
+}
+
+// B4b: blocks g of the batch (flat, frame-major, 54 per slice row, nblk in
+// all), kGroup per CUDA block; out: the 4:1-fused slots, g * 16 + j.
+__global__ void __launch_bounds__(kGroup)
+vlc_compat_fused4_kernel(const uint8_t* __restrict__ y, const uint8_t* __restrict__ cb,
+                         const uint8_t* __restrict__ cr, int H, int W, int nblk,
+                         const int32_t* __restrict__ scaled_q,
+                         const int32_t* __restrict__ zigzag, const int32_t* __restrict__ ac_code,
+                         const int32_t* __restrict__ ac_len, const int32_t* __restrict__ dc_code,
+                         const int32_t* __restrict__ dc_len, FusedOut out) {
+  __shared__ int s_lv[kGroup * 64];               // swizzled block-major (planes_dct.cuh)
+  __shared__ uint32_t s_ac[kAcRuns * kAcLevels];  // code | len << 16
+  __shared__ uint32_t s_dcc[2 * kDcSizes];        // code | len << 16, [luma][size]
+  __shared__ int s_q[64];
+  __shared__ int s_zpos[64];                      // natural index -> swizzled scan position
+
+  const int tid = threadIdx.x, lane = tid & 31, warp0 = tid - lane;
+  const int g0 = blockIdx.x * kGroup;
+
+  load_vlc_tables(s_ac, s_dcc, ac_code, ac_len, dc_code, dc_len, tid, kGroup);
+  if (tid < 64) {
+    s_q[tid] = scaled_q[tid];
+    s_zpos[zigzag[tid]] = swizzle_slot(tid);
+  }
+  __syncthreads();
+
+  // DCT phase: thread tid, block g0 + tid
+  if (g0 + tid < nblk) {
+    const int g = g0 + tid;
+    const int row = g / kNB, n = g - kNB * row;
+    const int b = row / kSlices, s = row - kSlices * b;
+    int stride;
+    const uint8_t* p = compat_origin(y, cb, cr, b, s, n, H, W, &stride);
+    int x[8][8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) x[r][c] = p[r * stride + c];
+    aan_dct(x);
+    int* const blk = s_lv + tid * 64;
+#pragma unroll
+    for (int v = 0; v < 8; ++v)
+#pragma unroll
+      for (int u = 0; u < 8; ++u)  // C's int division truncates toward zero
+        blk[s_zpos[v * 8 + u] ^ lane] = x[v][u] / s_q[v * 8 + u];
+  }
+  __syncwarp();
+
+  // emission: each warp its own 32 blocks, two per pass (lanes 0-15 and
+  // 16-31, neighbours in stream order).  nblk and g0 are even, so the
+  // warp's pass count is uniform: 16, fewer in the last group, or none.
+  const int passes = min(16, (nblk - g0 - warp0) / 2);
+  const int j = lane & 15;
+  for (int q = 0; q < passes; ++q) {
+    const int t = warp0 + 2 * q + (lane >> 4);  // the block of this half-warp
+    const int g = g0 + t;
+    int lv[4];
+    SwizzledLevels{s_lv + t * 64, t}(j, lv);
+    uint32_t code0 = 0;
+    int len0 = 0;
+    if (j == 0) code0 = emit_dc_compat(lv[0], g % 6, s_dcc, len0);  // n % 6 == g % 6
+    uint32_t c[4];
+    int l[4];
+    compat_lane_slots(lv, lane, code0, len0, s_ac, c, l);
+    store_fused4(c, l, out, (size_t)g * 16 + j);
+  }
+}
+
+bool valid_frames(int batch, int H, int W) {
+  return batch >= 0 && H >= kCropH && W >= kCropW && (long long)batch * kSlices * kNB <= INT_MAX;
 }
 
 }  // namespace
@@ -230,9 +354,17 @@ extern "C" int vlc_compat_slots_launch(const void* y, const void* cb, const void
                                        const void* ac_len, const void* dc_code,
                                        const void* dc_len, void* codes, void* lens,
                                        int device, void* stream) {
-  return launch<false>(y, cb, cr, batch, H, W, scaled_q, zigzag, ac_code, ac_len, dc_code,
-                       dc_len, (int32_t*)codes, (int32_t*)lens,
-                       FusedOut{nullptr, nullptr, nullptr, nullptr, nullptr}, device, stream);
+  if (!valid_frames(batch, H, W)) return (int)cudaErrorInvalidValue;
+  const DeviceGuard guard(device);
+  const cudaError_t err = guard.error();
+  if (err != cudaSuccess) return (int)err;
+  if (batch == 0) return (int)cudaSuccess;
+  vlc_compat_slots_kernel<<<batch * kSlices, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)y, (const uint8_t*)cb, (const uint8_t*)cr, H, W,
+      (const int32_t*)scaled_q, (const int32_t*)zigzag, (const int32_t*)ac_code,
+      (const int32_t*)ac_len, (const int32_t*)dc_code, (const int32_t*)dc_len,
+      (int32_t*)codes, (int32_t*)lens);
+  return (int)cudaGetLastError();
 }
 
 // B4b: v0..v3 and flens, each (batch * 6, 54 * 16) int32 in stream order.
@@ -242,11 +374,18 @@ extern "C" int vlc_compat_fused4_launch(const void* y, const void* cb, const voi
                                         const void* ac_len, const void* dc_code,
                                         const void* dc_len, void* v0, void* v1, void* v2,
                                         void* v3, void* flens, int device, void* stream) {
-  return launch<true>(y, cb, cr, batch, H, W, scaled_q, zigzag, ac_code, ac_len, dc_code,
-                      dc_len, nullptr, nullptr,
-                      FusedOut{(int32_t*)v0, (int32_t*)v1, (int32_t*)v2, (int32_t*)v3,
-                               (int32_t*)flens},
-                      device, stream);
+  if (!valid_frames(batch, H, W)) return (int)cudaErrorInvalidValue;
+  const DeviceGuard guard(device);
+  const cudaError_t err = guard.error();
+  if (err != cudaSuccess) return (int)err;
+  if (batch == 0) return (int)cudaSuccess;
+  const int nblk = batch * kSlices * kNB;
+  vlc_compat_fused4_kernel<<<(nblk + kGroup - 1) / kGroup, kGroup, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)y, (const uint8_t*)cb, (const uint8_t*)cr, H, W, nblk,
+      (const int32_t*)scaled_q, (const int32_t*)zigzag, (const int32_t*)ac_code,
+      (const int32_t*)ac_len, (const int32_t*)dc_code, (const int32_t*)dc_len,
+      FusedOut{(int32_t*)v0, (int32_t*)v1, (int32_t*)v2, (int32_t*)v3, (int32_t*)flens});
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* vlc_compat_strerror(int err) {

@@ -1,9 +1,9 @@
 // Device code shared by the VLC kernels (vlc_fused4.cu, vlc_levels4.cu,
 // vlc_compat.cu): the reference's integer AAN forward DCT, the VLC table
 // layout in shared memory, the correct-mode DC and AC slot emission, the
-// exact 4:1 and 8:1 slot fusions with their stream-order stores (a thread
-// per block for B4b; warp-cooperative for B1, B3 and B6b), and the one-word
-// form of a raw slot (B6a).
+// exact 4:1 and 8:1 slot fusions with their stream-order stores
+// (warp-cooperative: B1, B3, B6b and, with its own compat rules, B4b), and
+// the one-word form of a raw slot (B6a).
 //
 // Every function mirrors a function of the PyTorch twins (ops/dct.py,
 // ops/vlc_device.py, ops/bitpack.py::fuse4 and fuse8), which mirror the

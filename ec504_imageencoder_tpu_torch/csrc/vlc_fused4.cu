@@ -71,6 +71,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
 #include "planes_dct.cuh"
 #include "vlc_emit.cuh"
 
@@ -222,7 +223,8 @@ int launch(const void* y, const void* cb, const void* cr, int batch, int H, int 
            const void* dc_code, const void* dc_len, void* out, void* dct_viol, int device,
            void* stream) {
   if (H % 16 || W % 16 || (W / 16) * 6 > kMaxNB || batch < 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return (int)err;
   const int mbh = H / 16;
   const int rows = batch * mbh;

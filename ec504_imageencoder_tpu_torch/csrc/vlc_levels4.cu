@@ -40,6 +40,7 @@
 
 #include <algorithm>
 
+#include "device_guard.cuh"
 #include "vlc_emit.cuh"
 
 namespace {
@@ -100,7 +101,8 @@ extern "C" int vlc_levels4_launch(const void* levels, const void* preds, int row
   if (rows < 0 || nb < 0 || nb % 6 || nb > kMaxNB || ((uintptr_t)levels & 15) ||
       (long long)rows * nb > INT_MAX)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return (int)err;
   if (rows == 0 || nb == 0) return (int)cudaSuccess;
   // as many blocks as are resident at once, or fewer for a small input

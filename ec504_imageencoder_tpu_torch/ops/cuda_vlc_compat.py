@@ -83,12 +83,17 @@ def compat_blockize(y, cb, cr) -> torch.Tensor:
     return torch.cat([luma, chroma(cb), chroma(cr)], dim=3)
 
 
-def _stream_slots(y, cb, cr, scaled_q, luts: Luts):
-    """The twins' common part: int64 (codes, lens) of shape
-    (B * 6, 54, 64), the MB header and EOB folded in as the kernels do."""
-    blocks = compat_blockize(y, cb, cr)
-    zz = zigzag_scan(quantize(aan_dct(blocks), scaled_q), luts.zigzag)
-    comp = torch.arange(6, device=y.device)
+def compat_levels(y, cb, cr, scaled_q, luts: Luts) -> torch.Tensor:
+    """The twins' DCT side: (B, 6 bands, 9 MBs, 6, 64) quantized zigzag
+    levels (slot 0 the absolute DC)."""
+    return zigzag_scan(quantize(aan_dct(compat_blockize(y, cb, cr)), scaled_q), luts.zigzag)
+
+
+def stream_slots(zz, luts: Luts):
+    """The twins' emission: (B, 6, 9, 6, 64) levels -> int64 (codes, lens)
+    of shape (B * 6, 54, 64), the MB header and EOB folded in as the
+    kernels do."""
+    comp = torch.arange(6, device=zz.device)
     codes, lens = block_streams_compat(
         zz, (comp < 4).expand(zz.shape[:-1]),
         luts.dc_code, luts.dc_len, luts.ac_code, luts.ac_len,
@@ -100,20 +105,20 @@ def _stream_slots(y, cb, cr, scaled_q, luts: Luts):
     hdr = torch.bitwise_left_shift(torch.full_like(lens[..., 0], 0b11), lens[..., 0])
     codes[..., 0] = torch.where(first, hdr | codes[..., 0], codes[..., 0])
     lens[..., 0] += 2 * first
-    r = y.shape[0] * N_SLICES
+    r = zz.shape[0] * N_SLICES
     return codes.reshape(r, NB, 64), lens.reshape(r, NB, 64)
 
 
 def vlc_compat_slots_plain(y, cb, cr, scaled_q, luts: Luts):
     """Plain twin of B4a: same arguments, same outputs."""
-    codes, lens = _stream_slots(y, cb, cr, scaled_q, luts)
+    codes, lens = stream_slots(compat_levels(y, cb, cr, scaled_q, luts), luts)
     return (to_i32_bits(codes.transpose(1, 2)).contiguous(),
             lens.transpose(1, 2).to(torch.int32).contiguous())
 
 
 def vlc_compat_fused4_plain(y, cb, cr, scaled_q, luts: Luts):
     """Plain twin of B4b: same arguments, same outputs."""
-    codes, lens = _stream_slots(y, cb, cr, scaled_q, luts)
+    codes, lens = stream_slots(compat_levels(y, cb, cr, scaled_q, luts), luts)
     r = codes.shape[0]
     return tuple(to_i32_bits(t) for t in fuse4(codes.reshape(r, -1), lens.reshape(r, -1)))
 

@@ -172,12 +172,31 @@ def test_f32_dct_same_bits_on_card_and_host(cuda):
         torch.backends.cuda.matmul.allow_tf32 = False
 
 
+# B4b takes flat groups of 128 blocks, 324 a frame: 1 frame leaves a last
+# group of 68, 2 of 8, 30 of 120, 480 none; 401 and 101 are odd widths
+COMPAT_SHAPES = [(2, 150, 401), (1, 144, 96), (30, 150, 101), (480, 144, 96)]
+
+
+@pytest.mark.parametrize("content", ["noise", "flat", "checker"])
 @pytest.mark.parametrize("quality", [1, 12, 50, 100])
-@pytest.mark.parametrize("shape", [(2, 150, 401), (1, 144, 96)])
-def test_compat_kernels_match_twins(cuda, quality, shape):
-    rng = np.random.default_rng(quality + shape[2])
-    planes = tuple(torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(cuda)
-                   for _ in range(3))
+@pytest.mark.parametrize("shape", COMPAT_SHAPES)
+def test_compat_kernels_match_twins(cuda, quality, shape, content):
+    """B4a and B4b against their twins on noise (at q=1 nearly every slot
+    is nonzero, so the Q5 drop at slot 1 is common; q=100 escapes), flat
+    frames (the DC alone, 0 for dark frames) and checkerboards (the last
+    zigzag level nonzero)."""
+    rng = np.random.default_rng(quality + shape[0] + shape[2])
+    frames = shape[0]
+    if content == "noise":
+        arrays = [rng.integers(0, 256, shape, dtype=np.uint8) for _ in range(3)]
+    elif content == "flat":
+        arrays = [np.broadcast_to(rng.integers(0, 256, (frames, 1, 1)), shape) for _ in range(3)]
+    else:
+        yy, xx = np.indices(shape[1:])
+        arrays = [128 + rng.integers(100, 128, (frames, 1, 1)) * (((yy + xx) & 1) * 2 - 1)
+                  for _ in range(3)]
+    planes = tuple(torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint8)).to(cuda)
+                   for a in arrays)
     q = torch.from_numpy(scale_quantization_matrix(quality).astype(np.int32)).to(cuda)
     luts = Luts.compat(cuda)
     for kernel, twin in ((cuda_vlc_compat.vlc_compat_slots, cuda_vlc_compat.vlc_compat_slots_plain),
@@ -436,12 +455,13 @@ def _raw_kernels_equal_twin(codes, lens, max_words, b2=False):
 
 
 @pytest.mark.parametrize("content", ["random", "zeros", "ones", "all32", "zero-runs"])
-@pytest.mark.parametrize("k", [46080, 4095, 1, 100, 4096, 4097])
+@pytest.mark.parametrize("k", [46080, 4095, 1, 100, 4096, 4097, 511, 512, 513])
 @pytest.mark.parametrize("max_words", [5888, 7, 1000, "used", 342528 // 4])
 def test_raw_pack_kernels_match_twins(cuda, max_words, k, content):
     """K1-K4 against their twins (and, for "random" at K % 4 == 0, B2 on
     the 4:1 fusion of the same slots): a 1080p row's 46,080 slots, an odd
     count, a row shorter than one tile, exactly one K4 tile and one code
+    past it, and one code short of K1's tile (512), one tile and one code
     past it; 7 words overflows every slice, 1000 is no multiple of 128 and
     ends inside a tile, "used" is exactly the longest row's words, 342528 B
     exceeds shared memory (K1, K2 place in global memory)."""
@@ -506,3 +526,60 @@ def test_pack_route_encoder(cuda, pack):
         assert getattr(mod, counter) > 0 and cuda_lut.launches > 0
         assert cuda_vlc.launches == cuda_vlc_levels.launches == 0
         assert cuda_pack.launches == cuda_vlc_raw.launches == 0
+
+
+# ---- every launcher leaves the caller's current device --------------------
+
+def _launch_each_kernel(dev):
+    """kernel -> a call of its wrapper that launches it once on dev, at a
+    small size (B6d and B6e are one kernel, K1 `pack_raw`)."""
+    rng = np.random.default_rng(12)
+    core = TorchMPEG1IntraEncoder(quality=50, device=dev).core
+    hq = TorchMPEG1IntraEncoder(quality=85, device=dev).core
+    planes = _planes(rng, 1, 16, 48, dev)
+    slots = cuda_vlc.vlc_fused4(*planes, core.qw, core.luts())
+    words8, flens8 = cuda_vlc.vlc_fused8(*planes, core.qw, core.luts())
+    levels, preds = plane_levels(*planes, hq.qw, hq.zigzag)
+    compat = tuple(torch.from_numpy(rng.integers(0, 256, (1, 144, 96), dtype=np.uint8)).to(dev)
+                   for _ in range(3))
+    q = torch.from_numpy(scale_quantization_matrix(12).astype(np.int32)).to(dev)
+    codes, lens = _raw_slots(rng, 2, 1000, dev)
+    idx = torch.arange(-5, 200, dtype=torch.int32, device=dev)
+    return {
+        "vlc_fused4": lambda: cuda_vlc.vlc_fused4(*planes, core.qw, core.luts()),
+        "vlc_fused8": lambda: cuda_vlc.vlc_fused8(*planes, core.qw, core.luts()),
+        "vlc_raw": lambda: cuda_vlc_raw.vlc_raw(*planes, core.qw, core.luts()),
+        "vlc_levels4": lambda: cuda_vlc_levels.vlc_levels4(levels, preds, hq.luts()),
+        "vlc_compat_slots": lambda: cuda_vlc_compat.vlc_compat_slots(*compat, q, Luts.compat(dev)),
+        "vlc_compat_fused4": lambda: cuda_vlc_compat.vlc_compat_fused4(*compat, q, Luts.compat(dev)),
+        "lut_lookup": lambda: cuda_lut.lut_lookup(idx, cuda_lut.AC_PACKED.to(dev)),
+        "pack_fused4": lambda: cuda_pack.pack_fused4(*slots, 640),
+        "pack_fused4_checked": lambda: cuda_pack.pack_fused4(*slots, 640, checks=True),
+        "pack_fused8": lambda: cuda_pack.pack_fused8(words8, flens8, 640),
+        **{fn: (lambda mod=mod, fn=fn: getattr(mod, fn)(codes, lens, 640))
+           for mod, fn, _ in RAW_KERNELS.values()},
+    }
+
+
+KERNELS = ("vlc_fused4", "vlc_fused8", "vlc_raw", "vlc_levels4", "vlc_compat_slots",
+           "vlc_compat_fused4", "lut_lookup", "pack_fused4", "pack_fused4_checked", "pack_fused8",
+           "pack_raw", "pack_windows", "pack_split", "pack_pairs")
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_launch_leaves_the_current_device(cuda, kernel):
+    """Each launcher sets the tensors' device for its launch and restores
+    the caller's: torch.cuda.current_device() is the same after a launch
+    as before it.  With several cards, each is launched on while another
+    is current; with one, that case cannot be shown."""
+    n = torch.cuda.device_count()
+    for index in range(n):
+        dev = torch.device("cuda", index)
+        launches = _launch_each_kernel(dev)
+        torch.cuda.synchronize(dev)
+        current = (index + 1) % n
+        with torch.cuda.device(current):
+            launches[kernel]()
+            assert torch.cuda.current_device() == current
+        torch.cuda.synchronize(dev)
+

@@ -1,9 +1,22 @@
-"""A plain model of how K3 (`pack_windows`) and K4 (`pack_split`) cut a
-row of raw codes, held against the twin `cuda_pack.pack_raw_plain`.
+"""A plain model of how K1 (`pack_raw`), K3 (`pack_windows`) and K4
+(`pack_split`) cut a row of raw codes, held against the twin
+`cuda_pack.pack_raw_plain`.
 
-The CUDA kernels (`csrc/pack_split.cu`) cannot run on the CPU, so this
-file rehearses their decomposition with small tiles (8 and 32 codes, and
-a "warp" of 4 or 8 lanes) so that tile boundaries come often:
+The CUDA kernels (`csrc/pack_fused4.cu`, `csrc/pack_split.cu`) cannot run
+on the CPU, so this file rehearses their decomposition with small tiles
+(8 to 64 codes, and a "warp" of 2 to 8 lanes) so that tile boundaries come
+often:
+
+* K1: one block per row; a tile is `threads` x V codes, thread tid holding
+  the V consecutive codes tid V .. tid V + V - 1 of it, loaded together
+  (whole groups of 4 with 16-byte loads when K % 4 == 0, else one by one;
+  codes past the row read as length 0); the loads of tile t + 1 go out before
+  tile t's barrier; per tile a "warp" scan of the thread sums, the
+  warp totals in one half of a double buffer, each thread's offset from
+  its warp's prefix and the running carry, which every thread keeps; its
+  codes placed one after another from there; nbits is the final carry.
+  Mutations (no carry, an inclusive offset, the next tile loaded after
+  the barrier) each fail.
 
 * K4: per-tile totals; each tile's first bit from a decoupled look-back
   over its predecessors' status words (aggregate or inclusive prefix,
@@ -22,8 +35,10 @@ a "warp" of 4 or 8 lanes) so that tile boundaries come often:
 
 The cases are the kernels' edge cases: empty, 1-bit and 32-bit lengths,
 long zero-length runs across tiles, words that take bits from three
-tiles, rows shorter than a tile or empty, buffers that end inside a tile,
-at a tile's first word, exactly at the used words, or overflow.
+tiles, rows shorter than a tile or empty, one code short of a tile, a
+whole tile, one code past it, K % 4 != 0, buffers that end inside a tile,
+at a tile's first word, exactly at the used words, overflow, or are the
+342,528 B buffer that K1 keeps in global memory.
 Tolerance: exact (0).  Nothing in the port imports this model.
 """
 
@@ -178,6 +193,66 @@ def model_windows(codes, lens, max_words: int, bit_offset: int, chunk: int, lane
     return out, nbits
 
 
+def model_raw(codes, lens, max_words: int, bit_offset: int, threads: int, v: int, lanes: int,
+              mutation=None):
+    """K1, the order of its steps kept per tile: -> (words, nbits)."""
+    n, k = lens.shape
+    warps, tile = threads // lanes, threads * v
+    vec = k % 4 == 0
+    ntiles = -(-k // tile)
+    tid = np.arange(threads)
+    out = np.zeros((n, max_words), np.int64)
+    nbits = np.zeros(n, np.int64)
+    for r in range(n):
+        c = codes[r].astype(np.int64) & M32
+        ln = lens[r].astype(np.int64)
+        events = []
+
+        def load(t):
+            i = t * tile + v * tid[:, None] + np.arange(v)  # (threads, v)
+            inside = i < k
+            if vec:  # 16-byte loads: a group of 4 is read whole or not at all
+                group = i - np.arange(v) % 4
+                assert np.array_equal(group < k, inside)
+            events.append(("load", t))
+            j = np.minimum(i, max(k - 1, 0))
+            return np.where(inside, ln[j] if k else 0, 0), np.where(inside, c[j] if k else 0, 0)
+
+        cur = load(0)
+        carry = bit_offset
+        s_warp = np.zeros((2, warps), np.int64)
+        for t in range(ntiles):
+            if mutation != "load-after-barrier":
+                nxt = load(t + 1)
+            tl, tc = cur
+            sums = tl.sum(axis=1)
+            incl = sums.reshape(warps, lanes).cumsum(axis=1).reshape(-1)
+            s_warp[t & 1] = incl.reshape(warps, lanes)[:, -1]
+            events.append(("barrier", t))
+            if mutation == "load-after-barrier":
+                nxt = load(t + 1)
+            before = np.concatenate([[0], np.cumsum(s_warp[t & 1])[:-1]])[tid // lanes]
+            off = before + (incl if mutation == "inclusive-offset" else incl - sums)
+            if mutation != "no-carry":
+                off = off + carry
+            carry += int(s_warp[t & 1].sum())
+            for th in range(threads):
+                o = int(off[th])
+                for e in range(v):
+                    length = int(tl[th, e])
+                    if length > 0:
+                        w0, w1 = _place(int(tc[th, e]), length, o)
+                        for w, val in ((o >> 5, w0), ((o >> 5) + 1, w1)):
+                            if val and 0 <= w < max_words:
+                                out[r, w] |= val
+                    o += length
+            cur = nxt
+        nbits[r] = carry
+        for t in range(ntiles):  # tile t + 1 in flight across tile t's barrier
+            assert events.index(("load", t + 1)) < events.index(("barrier", t)), "prefetch order"
+    return out, nbits
+
+
 MODELS = {"K4": model_split, "K3": model_windows}
 GEOMETRIES = [(8, 4), (32, 8)]  # (codes per tile or chunk, lanes of the "warp")
 
@@ -239,14 +314,15 @@ CASES = {
     "k-below-tile": ("random", 2, "tile-1", 30, 38),
     "k-one-tile": ("all32", 2, "tile", "used", 38),
     "k-above-tile": ("random", 2, "tile+1", 40, 38),
+    "random-global-buffer": ("random", 2, 257, 342528 // 4, 38),
 }
+# K1: (threads, consecutive codes per thread, lanes of a "warp")
+K1_GEOMETRIES = [(8, 4, 4), (4, 8, 2), (16, 4, 8)]
+K1_MUTATIONS = ("no-carry", "inclusive-offset", "load-after-barrier")
 
 
-@pytest.mark.parametrize("case", list(CASES))
-@pytest.mark.parametrize("geometry", GEOMETRIES, ids=["tile8", "tile32"])
-@pytest.mark.parametrize("kernel", list(MODELS))
-def test_decomposition_matches_the_twin(kernel, geometry, case):
-    tile, lanes = geometry
+def _case(case: str, tile: int):
+    """-> (codes, lens, max_words, bit_offset) of a case at this tile size."""
     content, n, k, max_words, bit_offset = CASES[case]
     if isinstance(k, str):
         k = tile + {"tile-1": -1, "tile": 0, "tile+1": 1}[k]
@@ -255,12 +331,53 @@ def test_decomposition_matches_the_twin(kernel, geometry, case):
         max_words = max(_used_words(lens, bit_offset), 1)
     elif max_words == "tile2":
         max_words = (bit_offset + int(lens[0, :2 * tile].sum())) >> 5
-    seg, nbits = cuda_pack.pack_raw_plain(torch.from_numpy(codes), torch.from_numpy(lens),
-                                          max_words, bit_offset)
+    return codes, lens, max_words, bit_offset
+
+
+def _twin(codes, lens, max_words: int, bit_offset: int):
+    return cuda_pack.pack_raw_plain(torch.from_numpy(codes), torch.from_numpy(lens), max_words,
+                                    bit_offset)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("geometry", GEOMETRIES, ids=["tile8", "tile32"])
+@pytest.mark.parametrize("kernel", list(MODELS))
+def test_decomposition_matches_the_twin(kernel, geometry, case):
+    tile, lanes = geometry
+    codes, lens, max_words, bit_offset = _case(case, tile)
+    seg, nbits = _twin(codes, lens, max_words, bit_offset)
     words, got_bits = MODELS[kernel](codes, lens, max_words, bit_offset, tile, lanes,
-                                     np.random.default_rng(k))
+                                     np.random.default_rng(lens.shape[1]))
     assert np.array_equal(got_bits, nbits.numpy())
     assert torch.equal(bitpack.words_to_bytes(torch.from_numpy(words)), seg)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("geometry", K1_GEOMETRIES, ids=lambda g: "x".join(map(str, g)))
+def test_k1_tiles_match_the_twin(geometry, case):
+    threads, v, lanes = geometry
+    codes, lens, max_words, bit_offset = _case(case, threads * v)
+    seg, nbits = _twin(codes, lens, max_words, bit_offset)
+    words, got_bits = model_raw(codes, lens, max_words, bit_offset, threads, v, lanes)
+    assert np.array_equal(got_bits, nbits.numpy())
+    assert torch.equal(bitpack.words_to_bytes(torch.from_numpy(words)), seg)
+
+
+@pytest.mark.parametrize("mutation", K1_MUTATIONS)
+def test_k1_mutated_models_fail(mutation):
+    """Each mutation of K1's model either breaks the prefetch order or
+    gives other bytes than the twin on rows of several tiles."""
+    threads, v, lanes = K1_GEOMETRIES[0]
+    codes, lens, max_words, bit_offset = _case("random", threads * v)
+    seg, nbits = _twin(codes, lens, max_words, bit_offset)
+    try:
+        words, got_bits = model_raw(codes, lens, max_words, bit_offset, threads, v, lanes,
+                                    mutation)
+    except AssertionError as e:
+        assert "prefetch order" in str(e)
+        return
+    assert not (np.array_equal(got_bits, nbits.numpy())
+                and torch.equal(bitpack.words_to_bytes(torch.from_numpy(words)), seg))
 
 
 @pytest.mark.parametrize("seed", range(4))
