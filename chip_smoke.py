@@ -24,14 +24,19 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    1080p's 720 leave one), and on 2 x 1080p flat planes (every AC level 0)
    and checkerboards (the last zigzag level nonzero): exact;
 3. kernel B2 (pack_fused4) against its twin on those slots, including a
-   slice buffer that overflows and one too large for shared memory: exact;
+   slice buffer that overflows and one too large for shared memory, and on
+   the 16 x 1080p slots with each plane one element off its alignment (no
+   vector loads) and cut to one B2 tile -1, +0 and +1 slots (the last not
+   a multiple of the slots per thread), each with the auto buffer, 7 words
+   (overflows) and the 342,528 B one: exact;
 4. the q=50 main path: TorchMPEG1IntraEncoder(quality=50, device="cuda")
    .encode() and .encode_from_planes() on 16 x 1080p frames, plus a forced
    slice regrow, byte-equal to the CPU path; the B1 and B2 launch counts,
    reset just before, went up;
-5. steady-state times with CUDA events: B1 and B2 against their twins,
-   and q=50 encode()/encode_from_planes() in frames/s with every output
-   byte fetched to the host;
+5. steady-state times with CUDA events: B1 and B2 against their twins
+   (B2 also as the profiler's device time), and q=50 encode() /
+   encode_from_planes() in frames/s with every output byte fetched to the
+   host;
 6. kernel B3 (vlc_levels4) against its twin: 16 x 1080p at q=85 (levels
    computed once on the card by the f32 DCT path), 2 x 1000 x 1400 noise
    at q=100 (28-bit escapes), the flat planes and checkerboards of phase 2
@@ -64,16 +69,19 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    16 x 1080p q=85 levels and on random indices in and around both
    packed tables: exact;
 13. B2's checked form (pack_fused4 checks=True) against the unchecked
-   kernel and its twin: equal bytes and 0 violations on healthy slots,
-   the twin's exact counts for fused lengths of 200 and 129, counts > 0
-   on injected overlapping bits;
+   kernel and its twin: equal bytes and 0 violations on healthy slots
+   (phase 3's cases), the twin's exact counts for fused lengths of 200
+   and 129 (also at the first slot of a row's last tile and the last slot
+   of its first tile, aligned and not), counts > 0 on injected
+   overlapping bits;
 14. the sanitizer: TorchMPEG1IntraEncoder(debug_checks=True) encode() and
    encode_from_planes() on the 16 x 1080p frames at q=50 (through B6a)
    and q=85 (through B5), byte-equal to the CPU bytes of phases 4 and 8;
    B6a / B5 and the checked B2 launch, B1, B3 and the unchecked B2 do
    not; a slot violation injected on the card raises RuntimeError;
-15. times: B6a, B5 and the checked B2 against their twins, and the
-   debug_checks encode()/encode_from_planes() in frames/s;
+15. times: B6a, B5 and the checked B2 against their twins (the checked
+   B2 also as the profiler's device time), and the debug_checks
+   encode()/encode_from_planes() in frames/s;
 16. kernel B6b (vlc_fused8) against its twin on phase 11's planes, and
    kernel B6c (pack_fused8) against its twin on the slots of the 16 x
    1080p planes and the noise at q=50 with the auto buffer, an
@@ -93,10 +101,11 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    codes whose lengths are all 0, all 1, all 32, or carry runs of empty
    codes across their chunks and tiles, and on random rows of 4,095 codes
    (no 16-byte loads), each with the auto buffer, one of exactly the
-   longest row's words and the 342,528 B one: exact; K1 also on 1,088
-   rows of 511, 512 and 513 codes (its tile is 512) of random, all-1 and
-   all-32 lengths, with a buffer of the used words, one of 7 words
-   (overflows) and the 342,528 B one: exact;
+   longest row's words and the 342,528 B one: exact; K1 and K2 also on
+   1,088 rows of 511, 512 and 513 codes (their tile is 512) of random,
+   all-1 and all-32 lengths, with a buffer of the used words, one of 7
+   words (overflows) and the 342,528 B one, and on the 16 x 1080p raw
+   slots one element off their alignment: exact;
 20. the generic route, TorchMPEG1IntraEncoder(pack=...) for "pallas1",
    "pallas3", "fused" and "fused2w": encode(), encode_from_planes() and a
    forced regrow at q=50 byte-equal to the CPU bytes of phase 4, and
@@ -150,6 +159,12 @@ def _gpu_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def _unaligned(torch, t):
+    """t as a contiguous view one element into a larger tensor: its base is
+    not aligned for the kernels' vector loads."""
+    return torch.cat([t.new_zeros(1), t.reshape(-1)])[1:].view(t.shape)
 
 
 def _frames(np, rng, n: int):
@@ -231,9 +246,10 @@ def _event_ms(torch, fn, iters: int) -> float:
 
 
 def _device_ms(torch, fn, iters: int):
-    """Device time per call of fn(): the kernel and memset records of
-    torch.profiler summed over `iters` calls, or None where the profiler
-    records no device time."""
+    """Device time per call of fn() over `iters` calls, as "x ms" with the
+    fewest records of any kernel or memset (iters unless the profiler lost
+    some): each one's mean over its records, summed; "not measured" where
+    the profiler records no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -243,11 +259,15 @@ def _device_ms(torch, fn, iters: int):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages())
+        recs = [(e.device_time_total, e.count) for e in prof.key_averages()
+                if getattr(e, "device_time_total", 0) > 0]
     except RuntimeError as err:
         print(f"torch.profiler: {err}")
-        return None
-    return us / 1e3 / iters if us > 0 else None
+        return "not measured"
+    if not recs:
+        return "not measured"
+    ms = sum(us / n for us, n in recs) / 1e3
+    return f"{ms:.4f} ms ({min(n for _, n in recs)} of {iters} launches recorded)"
 
 
 def _frames_per_s(torch, fn, n_frames: int, reps: int) -> tuple[float, float]:
@@ -424,6 +444,18 @@ def main() -> int:
         ("noise, 2560 B buffer (overflows)", slots[f"2x{oh}x{ow} noise"], 640, True),
         ("noise, 342528 B buffer (global memory)", slots[f"2x{oh}x{ow} noise"], 342528 // 4, False),
     ]
+    # the 16 x 1080p slots off alignment and cut to B2's tile edges (full
+    # size: 1,088 rows)
+    tile = cuda_pack.fused4_tile()
+    b2_edges = {"16x1080p, planes one element off alignment":
+                [_unaligned(torch, t) for t in slots["16x1080p"]]}
+    for d in (-1, 0, 1):
+        b2_edges[f"16x1080p cut to {tile + d} slots (a tile {d:+d})"] = [
+            t[:, :tile + d].contiguous() for t in slots["16x1080p"]]
+    for ename, sl in b2_edges.items():
+        cases += [(f"{ename}, auto buffer", sl, msb_hd // 4, False),
+                  (f"{ename}, 7 words (overflows)", sl, 7, True),
+                  (f"{ename}, 342528 B buffer", sl, 342528 // 4, False)]
     b2_err = 0
     for name, sl, mw, must_overflow in cases:
         got = cuda_pack.pack_fused4(*sl, mw, bit_offset=38)
@@ -493,6 +525,15 @@ def main() -> int:
     }
     for name, (k_ms, p_ms) in times.items():
         print(f"{name} at 16x1080p: kernel {k_ms:.4f} ms, plain twin {p_ms:.4f} ms {tag}")
+    print(f"pack_fused4 at 16x1080p: device time (profiler records) "
+          f"{_device_ms(torch, lambda: cuda_pack.pack_fused4(*sl_hd, msb_hd // 4), 20)} {tag}")
+    # one frame's slices: fewer blocks than SMs, where a slice's latency is the time
+    sl_one = [t[:n_rows_hd // BATCH] for t in sl_hd]
+    for name, checks in (("pack_fused4", False), ("pack_fused4_checked", True)):
+        fn = lambda: cuda_pack.pack_fused4(*sl_one, msb_hd // 4, checks=checks)  # noqa: E731
+        print(f"{name} at one frame ({len(sl_one[4])} slices): kernel "
+              f"{_event_ms(torch, fn, 20):.4f} ms, device time (profiler records) "
+              f"{_device_ms(torch, fn, 20)} {tag}")
     for label, fn in (
         ("encode", lambda: enc.encode(frames)),
         ("encode_from_planes", lambda: enc.encode_from_planes(jy, jcb, jcr)),
@@ -674,9 +715,8 @@ def main() -> int:
         if name != "vlc_levels4":
             # a compat launch is short enough that the wrapper's host cost
             # can show in the event time: the profiler's device time too
-            dms = _device_ms(torch, lambda: kernel(*args), 20)
             print(f"{name} at {where}: device time (profiler records) "
-                  f"{'not measured' if dms is None else f'{dms:.4f} ms'} {tag}")
+                  f"{_device_ms(torch, lambda: kernel(*args), 20)} {tag}")
     for label, fn, n in (
         (f"encode 16x1080p q={HQ_QUALITY}", lambda: hq.encode(frames), BATCH),
         (f"encode_from_planes 16x1080p q={HQ_QUALITY}",
@@ -736,9 +776,7 @@ def main() -> int:
     # ---- 13. B2's checked form -------------------------------------------
     mw_hd = msb_hd // 4
     b2c_err = 0
-    for name, sl, mw in (("16x1080p", slots["16x1080p"], mw_hd),
-                         ("noise, 2560 B buffer", slots[f"2x{oh}x{ow} noise"], 640),
-                         ("noise, 342528 B buffer", slots[f"2x{oh}x{ow} noise"], 342528 // 4)):
+    for name, sl, mw, _ in cases:
         got = cuda_pack.pack_fused4(*sl, mw, bit_offset=38, checks=True)
         unchecked = cuda_pack.pack_fused4(*sl, mw, bit_offset=38)
         want = cuda_pack.pack_fused4_plain(*sl, mw, bit_offset=38, checks=True)
@@ -762,6 +800,26 @@ def main() -> int:
     print(f"B2 checked, fused lengths 200 and 129: violations in slices {hit}, max_abs_err {err}")
     if err != 0 or hit != [1, n_sl - 1] or int(got[2].sum()) != 2:
         raise AssertionError("checked B2 miscounts bad fused lengths")
+    # the same at B2's tile edges: the first slot of row 2's last tile and
+    # the last slot of row 3's first tile, with aligned planes and not
+    kf_hd = sl_hd[4].shape[1]
+    for aname, base in (("aligned", sl_hd), ("one element off alignment",
+                                             b2_edges["16x1080p, planes one element off alignment"])):
+        bad = [t.clone() for t in base]
+        bad[4][2, (kf_hd - 1) // tile * tile] = 200
+        bad[4][3, tile - 1] = 129
+        if aname != "aligned":
+            bad = [_unaligned(torch, t) for t in bad]
+        got = cuda_pack.pack_fused4(*bad, mw_hd, bit_offset=38, checks=True)
+        want = cuda_pack.pack_fused4_plain(*bad, mw_hd, bit_offset=38, checks=True)
+        torch.cuda.synchronize()
+        err = _max_abs_err(torch, got, want)
+        b2c_err = max(b2c_err, err)
+        hit = got[2].nonzero().flatten().tolist()
+        print(f"B2 checked, {aname}, lengths 200 at slot {(kf_hd - 1) // tile * tile} and 129 at "
+              f"slot {tile - 1}: violations in slices {hit}, max_abs_err {err}")
+        if err != 0 or hit != [2, 3] or int(got[2].sum()) != 2:
+            raise AssertionError(f"checked B2 miscounts bad fused lengths at its tile edges, {aname}")
     row = n_sl // 2
     over = [t.clone() for t in sl_hd]
     for t in over[:3]:
@@ -839,6 +897,9 @@ def main() -> int:
                        _event_ms(torch, lambda: twin(*args), 3))
         print(f"{name} at {where}: kernel {times[name][0]:.4f} ms, "
               f"plain twin {times[name][1]:.4f} ms {tag}")
+    dms = _device_ms(torch, lambda: cuda_pack.pack_fused4(*sl_hd, mw_hd, checks=True), 20)
+    print(f"pack_fused4_checked at 16x1080p q={QUALITY}: device time (profiler records) {dms} "
+          f"{tag}")
     # one PyTorch call computing the same function: B5's lookup is a gather
     # (every AC rank lies inside the table)
     library = {"lut_lookup": _event_ms(torch, lambda: ac_tab[ranks], 20)}
@@ -1007,8 +1068,8 @@ def main() -> int:
                     raise AssertionError(f"{name} disagrees with its twin, {content}, {bname}")
             del want, got
         del e_codes, e_lens
-    # K1 at its tile edges (512 codes a tile): one code short, one tile,
-    # one code past it (not a multiple of 4: scalar loads)
+    # K1 and K2 at their tile edges (512 codes a tile): one code short,
+    # one tile, one code past it (not a multiple of 4: scalar loads)
     for content, k in itertools.product(("random", "ones", "all32"), (511, 512, 513)):
         n = lens_hd.shape[0]
         if content == "random":
@@ -1020,17 +1081,31 @@ def main() -> int:
             torch.randint(0, 1 << 32, (n, k), generator=gen, dtype=torch.int64, device=dev)
             & ((1 << e_lens.long()) - 1))
         used = max(-(-(38 + int(e_lens.sum(dim=1, dtype=torch.int64).max())) // 32), 1)
-        for mw in (used, 7, 342528 // 4):
-            want = cuda_pack.pack_raw_plain(e_codes, e_lens, mw, bit_offset=38)
-            got = cuda_pack.pack_raw(e_codes, e_lens, mw, bit_offset=38)
+        for mw, (name, kernel, twin) in itertools.product(
+                (used, 7, 342528 // 4), (raw_packs["pallas1"], raw_packs["fused2w"])):
+            want = twin(e_codes, e_lens, mw, bit_offset=38)
+            got = kernel(e_codes, e_lens, mw, bit_offset=38)
             torch.cuda.synchronize()
             err = _max_abs_err(torch, got, want)
-            raw_err["pack_raw"] = max(raw_err["pack_raw"], err)
-            print(f"pack_raw vs twin, {content}, {n} x {k}, {mw}-word buffer: "
+            raw_err[name] = max(raw_err[name], err)
+            print(f"{name} vs twin, {content}, {n} x {k}, {mw}-word buffer: "
                   f"{int((want[1] > 32 * mw).sum())} over the buffer, max_abs_err {err}")
             if err != 0:
-                raise AssertionError(f"pack_raw disagrees with its twin, {content}, {k} codes")
+                raise AssertionError(f"{name} disagrees with its twin, {content}, {k} codes")
         del e_codes, e_lens, want, got
+    # K1 and K2 on the 16 x 1080p raw slots one element off alignment
+    off_codes, off_lens = _unaligned(torch, codes_hd), _unaligned(torch, lens_hd)
+    for name, kernel, twin in (raw_packs["pallas1"], raw_packs["fused2w"]):
+        got = kernel(off_codes, off_lens, mw_hd, bit_offset=38)
+        want = twin(codes_hd, lens_hd, mw_hd, bit_offset=38)
+        torch.cuda.synchronize()
+        err = _max_abs_err(torch, got, want)
+        raw_err[name] = max(raw_err[name], err)
+        print(f"{name} vs twin, 16x1080p q={QUALITY} raw slots one element off alignment: "
+              f"max_abs_err {err}")
+        if err != 0:
+            raise AssertionError(f"{name} disagrees with its twin off alignment")
+    del off_codes, off_lens, want, got
     torch.cuda.empty_cache()
 
     # ---- 20. the generic route: pack= ------------------------------------
@@ -1086,8 +1161,8 @@ def main() -> int:
     one = (codes_hd[:mbh_hd], lens_hd[:mbh_hd])
     for name, kernel, _ in raw_packs.values():
         ms = _event_ms(torch, lambda: kernel(*one, mw_hd), 20)
-        dms = ["not measured" if v is None else f"{v:.4f} ms" for v in (
-            _device_ms(torch, lambda: kernel(*args, mw_hd), 20) for args in (one, (codes_hd, lens_hd)))]
+        dms = [_device_ms(torch, lambda: kernel(*args, mw_hd), 20)
+               for args in (one, (codes_hd, lens_hd))]
         print(f"{name} at 1x1080p ({one[1].shape[0]} slices): kernel {ms:.4f} ms (events); device "
               f"time (profiler records) {dms[0]}, at 16x1080p {dms[1]} {tag}")
     del codes_hd, lens_hd, one

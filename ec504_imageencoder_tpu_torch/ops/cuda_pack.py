@@ -67,12 +67,19 @@ _ARGTYPES = {
     "pack_fused8_launch": [*[_P] * 9, _I, _I, _I, _I, _P, _P, _I, _P],
     "pack_raw_launch": [_P, _P, _I, _I, _I, _I, _P, _P, _I, _P],
     "pack_pairs_launch": [_P, _P, _I, _I, _I, _I, _P, _P, _I, _P],
+    "pack_fused4_tile": [],
 }
 
 
 def load_kernel():
     """Build (at first use) and load the kernels' shared library."""
     return _build.load("pack_fused4", _ARGTYPES)
+
+
+def fused4_tile() -> int:
+    """B2's slots per tile (threads per block x slots per thread), as the
+    built kernel has it: where the tile edges that its tests cover lie."""
+    return load_kernel().pack_fused4_tile()
 
 
 def pack_fused4_plain(v0, v1, v2, v3, flens, max_words: int, bit_offset: int = 38,

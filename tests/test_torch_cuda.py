@@ -109,11 +109,40 @@ def _fused_slots(rng, n, kf, dev):
     return [*vs, torch.from_numpy(flens.astype(np.int32)).to(dev)]
 
 
+# B2's slots per row: 3000; one tile -1, +0, +1 (+1 is odd, not a multiple
+# of the slots per thread: the scalar loads); a 1080p row's 11,520
+KF_CASES = [3000, "tile-1", "tile", "tile+1", 11520]
+
+
+def _kf(case) -> int:
+    if isinstance(case, int):
+        return case
+    tile = cuda_pack.fused4_tile()
+    return tile + {"tile-1": -1, "tile": 0, "tile+1": 1}[case]
+
+
+def _offset(slots, unaligned: bool):
+    """The planes, each as a view one element into a larger tensor when
+    `unaligned` (no vector loads)."""
+    if not unaligned:
+        return slots
+    return [torch.cat([t.new_zeros(1), t.reshape(-1)])[1:].view(t.shape) for t in slots]
+
+
+def _pack_inputs(rng, n, kf, dev, unaligned: bool):
+    """_fused_slots, off alignment when `unaligned`."""
+    return _offset(_fused_slots(rng, n, kf, dev), unaligned)
+
+
+@pytest.mark.parametrize("unaligned", [False, True], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("kf", KF_CASES, ids=str)
 @pytest.mark.parametrize("max_words", [640, 7, 342528 // 4])
-def test_pack_kernel_matches_twin(cuda, max_words):
+def test_pack_kernel_matches_twin(cuda, max_words, kf, unaligned):
     """Random values of up to 128 bits; 7 words overflows every slice,
-    342528 B exceeds shared memory and takes the global-memory path."""
-    slots = _fused_slots(np.random.default_rng(max_words), 5, 3000, cuda)
+    342528 B exceeds shared memory and takes the global-memory path; rows
+    at B2's tile edges, of a 1080p row's length, and planes whose bases
+    are not aligned for vector loads."""
+    slots = _pack_inputs(np.random.default_rng(max_words), 5, _kf(kf), cuda, unaligned)
     seg, nbits = cuda_pack.pack_fused4(*slots, max_words, bit_offset=38)
     seg_t, nbits_t = cuda_pack.pack_fused4_plain(*slots, max_words, bit_offset=38)
     assert torch.equal(nbits, nbits_t)
@@ -271,20 +300,27 @@ def test_lut_kernel_matches_twin(cuda, n):
         assert torch.equal(cuda_lut.lut_lookup(idx, t), cuda_lut.lut_lookup_plain(idx, t))
 
 
+@pytest.mark.parametrize("unaligned", [False, True], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("kf", KF_CASES, ids=str)
 @pytest.mark.parametrize("max_words", [640, 7, 342528 // 4])
-def test_checked_pack_kernel_matches_twin(cuda, max_words):
-    """Healthy slots: the unchecked kernel's bytes and no violation.  A
-    fused length of 200: the same count as the twin.  Overlapping bits: a
-    count above 0 (its multiplicity depends on the order of the atomics)."""
-    slots = _fused_slots(np.random.default_rng(max_words), 5, 3000, cuda)
+def test_checked_pack_kernel_matches_twin(cuda, max_words, kf, unaligned):
+    """Healthy slots: the unchecked kernel's bytes and no violation.  Fused
+    lengths of 200 and 129 at the first slot of a row's last tile and the
+    last slot of its first tile: the same counts as the twin.  Overlapping
+    bits: a count above 0 (its multiplicity depends on the order of the
+    atomics).  The rows and planes of test_pack_kernel_matches_twin."""
+    kf = _kf(kf)
+    slots = _pack_inputs(np.random.default_rng(max_words), 5, kf, cuda, unaligned)
     seg, nbits, viol = cuda_pack.pack_fused4(*slots, max_words, bit_offset=38, checks=True)
     seg_u, nbits_u = cuda_pack.pack_fused4(*slots, max_words, bit_offset=38)
     assert torch.equal(seg, seg_u) and torch.equal(nbits, nbits_u)
     assert not viol.any()
 
+    tile = cuda_pack.fused4_tile()
     bad = [t.clone() for t in slots]
-    bad[4][1, 17] = 200
-    bad[4][3, 5] = 129
+    bad[4][1, (kf - 1) // tile * tile] = 200
+    bad[4][3, min(tile, kf) - 1] = 129
+    bad = _offset(bad, unaligned)
     got = cuda_pack.pack_fused4(*bad, max_words, bit_offset=38, checks=True)
     want = cuda_pack.pack_fused4_plain(*bad, max_words, bit_offset=38, checks=True)
     for g, w in zip(got, want):
@@ -296,6 +332,7 @@ def test_checked_pack_kernel_matches_twin(cuda, max_words):
         t[2, :20] = 0
     over[3][2, :20] = -1  # 16 one bits above each 16-bit length
     over[4][2, :20] = 16
+    over = _offset(over, unaligned)
     got = cuda_pack.pack_fused4(*over, max_words, bit_offset=38, checks=True)
     want = cuda_pack.pack_fused4_plain(*over, max_words, bit_offset=38, checks=True)
     assert torch.equal(got[1], want[1])

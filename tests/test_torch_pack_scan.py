@@ -1,22 +1,31 @@
-"""A plain model of how K1 (`pack_raw`), K3 (`pack_windows`) and K4
-(`pack_split`) cut a row of raw codes, held against the twin
-`cuda_pack.pack_raw_plain`.
+"""A plain model of how the tile loop (K1 `pack_raw`, K2 `pack_pairs`, B2
+`pack_fused4` and its checked form), K3 (`pack_windows`) and K4
+(`pack_split`) cut a row, held against the twins
+`cuda_pack.pack_raw_plain`, `pack_pairs_plain` and `pack_fused4_plain`.
 
 The CUDA kernels (`csrc/pack_fused4.cu`, `csrc/pack_split.cu`) cannot run
 on the CPU, so this file rehearses their decomposition with small tiles
 (8 to 64 codes, and a "warp" of 2 to 8 lanes) so that tile boundaries come
-often:
+often, and at the kernels' own geometries:
 
-* K1: one block per row; a tile is `threads` x V codes, thread tid holding
-  the V consecutive codes tid V .. tid V + V - 1 of it, loaded together
-  (whole groups of 4 with 16-byte loads when K % 4 == 0, else one by one;
-  codes past the row read as length 0); the loads of tile t + 1 go out before
-  tile t's barrier; per tile a "warp" scan of the thread sums, the
-  warp totals in one half of a double buffer, each thread's offset from
-  its warp's prefix and the running carry, which every thread keeps; its
-  codes placed one after another from there; nbits is the final carry.
-  Mutations (no carry, an inclusive offset, the next tile loaded after
-  the barrier) each fail.
+* The tile loop (`model_tiles`): one block per row; a tile is `threads` x
+  V slots, thread tid holding the V consecutive slots tid V .. tid V + V -
+  1 of it, loaded together (whole groups of 4, or of 2 when V is not a
+  multiple of 4, with vector loads when the row's length allows, else one
+  by one; slots past the row read as length 0); the loads of tile t + 1
+  go out before tile t's barrier; per tile a "warp" scan of the thread
+  sums, the warp totals in one half of a double buffer, each thread's
+  offset from its warp's prefix and the running carry, which every thread
+  keeps; its slots placed one after another from there; nbits is the
+  final carry.  The sources: K1's raw codes, each in a 64-bit window;
+  K2's pairs (0, 1), (2, 3) of a thread's codes fused as `_fuse2_32` does
+  and placed from a 96-bit window (an odd K's last code paired with one
+  past the row); B2's fused slots, loaded whole, from a 160-bit window.
+  B2's checked form counts
+  lengths outside [0, 128] and placements onto set bits, and skips a
+  value that starts above its window.  Mutations (no carry, an inclusive
+  offset, the next tile loaded after the barrier, a pair fused in the
+  wrong order, the checked skip dropped) each fail.
 
 * K4: per-tile totals; each tile's first bit from a decoupled look-back
   over its predecessors' status words (aggregate or inclusive prefix,
@@ -38,8 +47,12 @@ long zero-length runs across tiles, words that take bits from three
 tiles, rows shorter than a tile or empty, one code short of a tile, a
 whole tile, one code past it, K % 4 != 0, buffers that end inside a tile,
 at a tile's first word, exactly at the used words, overflow, or are the
-342,528 B buffer that K1 keeps in global memory.
-Tolerance: exact (0).  Nothing in the port imports this model.
+342,528 B buffer that the tile loop keeps in global memory; for B2 the same
+rows as fused slots of up to 128 bits, and for its checked form lengths of
+200 and 129 at a tile's first and last slot and negative ones.
+Tolerance: exact (0); the checked form's overlap count as zero / nonzero
+where a negative length makes slots overlap.  Nothing in the port imports
+this model.
 """
 
 import numpy as np
@@ -193,39 +206,75 @@ def model_windows(codes, lens, max_words: int, bit_offset: int, chunk: int, lane
     return out, nbits
 
 
-def model_raw(codes, lens, max_words: int, bit_offset: int, threads: int, v: int, lanes: int,
-              mutation=None):
-    """K1, the order of its steps kept per tile: -> (words, nbits)."""
-    n, k = lens.shape
+def _window_words(u, nw: int, length: int, off: int, skip: bool):
+    """`place_window`: [(word, value)] of a value of `length` bits, words
+    u[1..nw] (most significant first) below u[0] = 0, at bit offset off,
+    from the top of its 32 (nw + 1)-bit window; `skip`: nothing when the
+    value would start above the window (the checked form)."""
+    sig = 32 * (nw + 1) - (off & 31) - length
+    if length <= 0 or (skip and sig < 0):
+        return []
+    q, r = sig >> 5, sig & 31
+    out = []
+    for j in range(nw + 1):
+        i = j + q
+        hi = u[i] if 0 <= i <= nw else 0
+        lo = u[i + 1] if 0 <= i + 1 <= nw else 0
+        out.append(((off >> 5) + j, ((hi << r) | (lo >> (32 - r))) & M32 if r else hi))
+    return out
+
+
+def _fuse_pair(c1: int, l1: int, c2: int, l2: int):
+    """`_fuse2_32` of one pair: (hi, lo) of c1 2^l2 | c2."""
+    c1, c2 = (c1 if l1 > 0 else 0), (c2 if l2 > 0 else 0)
+    r = l2 & 31
+    hi = (c1 >> (32 - r) if r else c1) if l2 > 0 else 0
+    lo = ((c1 << r) & M32 if l2 < 32 else 0) | c2
+    return hi, lo
+
+
+def model_tiles(source: str, arrays, max_words: int, bit_offset: int, threads: int, v: int,
+                lanes: int, checks: bool = False, mutation=None):
+    """The tile loop, the order of its steps kept per tile: K1 (source
+    "raw", arrays (codes, lens)), K2 ("pairs", the same arrays) or B2
+    ("fused4", arrays (v0, v1, v2, v3, flens); `checks` its checked form)
+    -> (words, nbits, viol)."""
+    lens_all = arrays[-1]
+    n, k = lens_all.shape
     warps, tile = threads // lanes, threads * v
-    vec = k % 4 == 0
+    width = 4 if v % 4 == 0 else 2
+    vec = k % width == 0
     ntiles = -(-k // tile)
     tid = np.arange(threads)
     out = np.zeros((n, max_words), np.int64)
     nbits = np.zeros(n, np.int64)
+    viol = np.zeros(n, np.int64)
     for r in range(n):
-        c = codes[r].astype(np.int64) & M32
-        ln = lens[r].astype(np.int64)
+        ln = lens_all[r].astype(np.int64)
+        planes = [a[r].astype(np.int64) & M32 for a in arrays[:-1]]
         events = []
 
-        def load(t):
+        def read(arr, t):
             i = t * tile + v * tid[:, None] + np.arange(v)  # (threads, v)
             inside = i < k
-            if vec:  # 16-byte loads: a group of 4 is read whole or not at all
-                group = i - np.arange(v) % 4
+            if vec:  # vector loads: a group of `width` is read whole or not at all
+                group = i - np.arange(v) % width
                 assert np.array_equal(group < k, inside)
-            events.append(("load", t))
             j = np.minimum(i, max(k - 1, 0))
-            return np.where(inside, ln[j] if k else 0, 0), np.where(inside, c[j] if k else 0, 0)
+            return np.where(inside, arr[j] if k else 0, 0)
 
-        cur = load(0)
+        def load(t):  # tile t's lengths and words
+            events.append(("load", t))
+            return read(ln, t), [read(p, t) for p in planes]
+
+        cur_l, cur_w = load(0)
         carry = bit_offset
+        hits = 0
         s_warp = np.zeros((2, warps), np.int64)
         for t in range(ntiles):
             if mutation != "load-after-barrier":
                 nxt = load(t + 1)
-            tl, tc = cur
-            sums = tl.sum(axis=1)
+            sums = cur_l.sum(axis=1)
             incl = sums.reshape(warps, lanes).cumsum(axis=1).reshape(-1)
             s_warp[t & 1] = incl.reshape(warps, lanes)[:, -1]
             events.append(("barrier", t))
@@ -238,19 +287,36 @@ def model_raw(codes, lens, max_words: int, bit_offset: int, threads: int, v: int
             carry += int(s_warp[t & 1].sum())
             for th in range(threads):
                 o = int(off[th])
-                for e in range(v):
-                    length = int(tl[th, e])
-                    if length > 0:
-                        w0, w1 = _place(int(tc[th, e]), length, o)
-                        for w, val in ((o >> 5, w0), ((o >> 5) + 1, w1)):
-                            if val and 0 <= w < max_words:
-                                out[r, w] |= val
+                ls = [int(x) for x in cur_l[th]]
+                ws = [[int(p[th, e]) for p in cur_w] for e in range(v)]
+                if source == "raw":
+                    for e in range(v):
+                        if ls[e] > 0:
+                            w0, w1 = _place(ws[e][0], ls[e], o)
+                            for w, val in ((o >> 5, w0), ((o >> 5) + 1, w1)):
+                                if val and 0 <= w < max_words:
+                                    out[r, w] |= val
+                        o += ls[e]
+                    continue
+                for e in range(0, v, 2 if source == "pairs" else 1):
+                    if source == "pairs":
+                        a, b = (e + 1, e) if mutation == "pair-order" else (e, e + 1)
+                        u = [0, *_fuse_pair(ws[a][0], ls[a], ws[b][0], ls[b])]
+                        length, nw = ls[a] + ls[b], 2
+                    else:
+                        u, length, nw = [0, *ws[e]], ls[e], 4
+                        hits += checks and (length < 0 or length > 128)
+                    skip = checks and mutation != "no-checked-skip"
+                    for w, val in _window_words(u, nw, length, o, skip):
+                        if val and 0 <= w < max_words:
+                            hits += checks and (int(out[r, w]) & val) != 0
+                            out[r, w] |= val
                     o += length
-            cur = nxt
-        nbits[r] = carry
+            cur_l, cur_w = nxt
+        nbits[r], viol[r] = carry, hits
         for t in range(ntiles):  # tile t + 1 in flight across tile t's barrier
             assert events.index(("load", t + 1)) < events.index(("barrier", t)), "prefetch order"
-    return out, nbits
+    return out, nbits, viol
 
 
 MODELS = {"K4": model_split, "K3": model_windows}
@@ -316,27 +382,64 @@ CASES = {
     "k-above-tile": ("random", 2, "tile+1", 40, 38),
     "random-global-buffer": ("random", 2, 257, 342528 // 4, 38),
 }
-# K1: (threads, consecutive codes per thread, lanes of a "warp")
+# K1 and K2: (threads, consecutive codes per thread, lanes of a "warp");
+# the last is the kernels' own (128 threads x 4 codes, warps of 32)
 K1_GEOMETRIES = [(8, 4, 4), (4, 8, 2), (16, 4, 8)]
+K2_GEOMETRIES = [*K1_GEOMETRIES, (128, 4, 32)]
 K1_MUTATIONS = ("no-carry", "inclusive-offset", "load-after-barrier")
+# B2: (threads, consecutive fused slots per thread, lanes); small ones, three
+# that were timed on the card (64 x 4, 128 x 4, 256 x 2) and the kernel's own
+B2_GEOMETRIES = [(4, 2, 2), (8, 4, 4), (64, 4, 32), (128, 4, 32), (256, 2, 32), (512, 4, 32)]
+# each must fail: K2 fusing (c2, c1) for (c1, c2); the checked B2 placing a
+# value that starts above its window; B2 loading tile t + 1 after tile t's
+# barrier
+TILE_MUTATIONS = ("pair-order", "no-checked-skip", "load-after-barrier")
 
 
-def _case(case: str, tile: int):
-    """-> (codes, lens, max_words, bit_offset) of a case at this tile size."""
+def _case(case: str, tile: int, fused: bool = False):
+    """-> (arrays, max_words, bit_offset) of a case at this tile size:
+    arrays (codes, lens) of raw codes, or with `fused` (v0, v1, v2, v3,
+    flens) of 4:1-fused slots whose lengths are the raw case's times 4 (up
+    to 128; "ones" and "tiny" keep theirs), each value masked to its
+    length."""
     content, n, k, max_words, bit_offset = CASES[case]
     if isinstance(k, str):
         k = tile + {"tile-1": -1, "tile": 0, "tile+1": 1}[k]
     codes, lens = _raw(len(case) + 7 * tile, n, k, content, tile)
+    arrays = (codes, lens)
+    if fused:
+        if content not in ("ones", "tiny"):
+            lens = lens * 4
+        rng = np.random.default_rng(len(case) + 11 * tile)
+        words = rng.integers(0, 1 << 32, (4, n, k), dtype=np.uint64)
+        for i in range(4):  # v0 holds the top bits
+            keep = np.clip(lens - 32 * (3 - i), 0, 32).astype(np.uint64)
+            words[i] &= (np.uint64(1) << keep) - np.uint64(1)
+        arrays = (*words.astype(np.uint32).view(np.int32), lens)
     if max_words == "used":
         max_words = max(_used_words(lens, bit_offset), 1)
     elif max_words == "tile2":
         max_words = (bit_offset + int(lens[0, :2 * tile].sum())) >> 5
-    return codes, lens, max_words, bit_offset
+    return arrays, max_words, bit_offset
 
 
-def _twin(codes, lens, max_words: int, bit_offset: int):
-    return cuda_pack.pack_raw_plain(torch.from_numpy(codes), torch.from_numpy(lens), max_words,
-                                    bit_offset)
+TWINS = {"raw": cuda_pack.pack_raw_plain, "pairs": cuda_pack.pack_pairs_plain}
+
+
+def _twin(source: str, arrays, max_words: int, bit_offset: int, checks: bool = False):
+    """The kernel's plain twin -> (seg, nbits, viol or None)."""
+    ts = [torch.from_numpy(a) for a in arrays]
+    if source == "fused4":
+        out = cuda_pack.pack_fused4_plain(*ts, max_words, bit_offset, checks=checks)
+        return out if checks else (*out, None)
+    return (*TWINS[source](*ts, max_words, bit_offset), None)
+
+
+def _matches(got, want) -> bool:
+    words, nbits, viol = got
+    return (np.array_equal(nbits, want[1].numpy())
+            and torch.equal(bitpack.words_to_bytes(torch.from_numpy(words)), want[0])
+            and (want[2] is None or np.array_equal(viol, want[2].numpy())))
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -344,8 +447,8 @@ def _twin(codes, lens, max_words: int, bit_offset: int):
 @pytest.mark.parametrize("kernel", list(MODELS))
 def test_decomposition_matches_the_twin(kernel, geometry, case):
     tile, lanes = geometry
-    codes, lens, max_words, bit_offset = _case(case, tile)
-    seg, nbits = _twin(codes, lens, max_words, bit_offset)
+    (codes, lens), max_words, bit_offset = _case(case, tile)
+    seg, nbits, _ = _twin("raw", (codes, lens), max_words, bit_offset)
     words, got_bits = MODELS[kernel](codes, lens, max_words, bit_offset, tile, lanes,
                                      np.random.default_rng(lens.shape[1]))
     assert np.array_equal(got_bits, nbits.numpy())
@@ -356,11 +459,60 @@ def test_decomposition_matches_the_twin(kernel, geometry, case):
 @pytest.mark.parametrize("geometry", K1_GEOMETRIES, ids=lambda g: "x".join(map(str, g)))
 def test_k1_tiles_match_the_twin(geometry, case):
     threads, v, lanes = geometry
-    codes, lens, max_words, bit_offset = _case(case, threads * v)
-    seg, nbits = _twin(codes, lens, max_words, bit_offset)
-    words, got_bits = model_raw(codes, lens, max_words, bit_offset, threads, v, lanes)
-    assert np.array_equal(got_bits, nbits.numpy())
-    assert torch.equal(bitpack.words_to_bytes(torch.from_numpy(words)), seg)
+    arrays, max_words, bit_offset = _case(case, threads * v)
+    got = model_tiles("raw", arrays, max_words, bit_offset, threads, v, lanes)
+    assert _matches(got, _twin("raw", arrays, max_words, bit_offset))
+
+
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("geometry", K2_GEOMETRIES, ids=lambda g: "x".join(map(str, g)))
+def test_k2_tiles_match_the_twin(geometry, case):
+    """K2's pairs, fused in registers after K1's loads (an odd k's last
+    code paired with one past the row), against `pack_pairs_plain`."""
+    threads, v, lanes = geometry
+    arrays, max_words, bit_offset = _case(case, threads * v)
+    got = model_tiles("pairs", arrays, max_words, bit_offset, threads, v, lanes)
+    assert _matches(got, _twin("pairs", arrays, max_words, bit_offset))
+
+
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("checks", [False, True], ids=["plain", "checked"])
+@pytest.mark.parametrize("geometry", B2_GEOMETRIES, ids=lambda g: "x".join(map(str, g)))
+def test_b2_tiles_match_the_twin(geometry, checks, case):
+    """B2's fused slots, and its checked form with no violation, against
+    `pack_fused4_plain`."""
+    threads, v, lanes = geometry
+    arrays, max_words, bit_offset = _case(case, threads * v, fused=True)
+    got = model_tiles("fused4", arrays, max_words, bit_offset, threads, v, lanes, checks)
+    assert _matches(got, _twin("fused4", arrays, max_words, bit_offset, checks))
+    assert not got[2].any()
+
+
+@pytest.mark.parametrize("geometry", B2_GEOMETRIES, ids=lambda g: "x".join(map(str, g)))
+def test_b2_checked_model_counts_bad_lengths(geometry):
+    """Fused lengths of 200 (skipped: above its window) at a tile's first
+    slot and 129 (placed) at a tile's last: the twin's exact counts and
+    bytes; a negative length: the twin's bit counts, and overlaps found
+    in that row only."""
+    threads, v, lanes = geometry
+    tile = threads * v
+    arrays, _, bit_offset = _case("k-above-tile", tile, fused=True)
+    max_words = 342528 // 4
+    k = arrays[-1].shape[1]
+    bad = [a.copy() for a in arrays]
+    bad[4][0, tile] = 200
+    bad[4][1, tile - 1] = 129
+    for a in bad[:4]:  # every bit set: the skipped value would write, the other fits
+        a[0, tile] = a[1, tile - 1] = -1
+    got = model_tiles("fused4", bad, max_words, bit_offset, threads, v, lanes, True)
+    assert _matches(got, _twin("fused4", bad, max_words, bit_offset, True))
+    assert got[2].tolist() == [1, 1]
+    neg = [a.copy() for a in arrays]
+    neg[4][1, k // 2] = -7
+    got = model_tiles("fused4", neg, max_words, bit_offset, threads, v, lanes, True)
+    want = _twin("fused4", neg, max_words, bit_offset, True)
+    assert np.array_equal(got[1], want[1].numpy())
+    assert (got[2] > 0).tolist() == (want[2] > 0).tolist() == [False, True]
 
 
 @pytest.mark.parametrize("mutation", K1_MUTATIONS)
@@ -368,16 +520,37 @@ def test_k1_mutated_models_fail(mutation):
     """Each mutation of K1's model either breaks the prefetch order or
     gives other bytes than the twin on rows of several tiles."""
     threads, v, lanes = K1_GEOMETRIES[0]
-    codes, lens, max_words, bit_offset = _case("random", threads * v)
-    seg, nbits = _twin(codes, lens, max_words, bit_offset)
+    arrays, max_words, bit_offset = _case("random", threads * v)
     try:
-        words, got_bits = model_raw(codes, lens, max_words, bit_offset, threads, v, lanes,
-                                    mutation)
+        got = model_tiles("raw", arrays, max_words, bit_offset, threads, v, lanes,
+                          mutation=mutation)
     except AssertionError as e:
         assert "prefetch order" in str(e)
         return
-    assert not (np.array_equal(got_bits, nbits.numpy())
-                and torch.equal(bitpack.words_to_bytes(torch.from_numpy(words)), seg))
+    assert not _matches(got, _twin("raw", arrays, max_words, bit_offset))
+
+
+@pytest.mark.parametrize("mutation", TILE_MUTATIONS)
+def test_tile_mutated_models_fail(mutation):
+    """Each mutation of K2's or B2's model breaks the prefetch order or
+    gives other bytes or counts than the twin: K2 on random rows, the
+    checked B2 on rows with a length of 200 over a slot of set bits."""
+    threads, v, lanes = B2_GEOMETRIES[0]
+    source = "pairs" if mutation == "pair-order" else "fused4"
+    arrays, max_words, bit_offset = _case("random", threads * v, fused=source == "fused4")
+    checks = source == "fused4"
+    if checks:
+        arrays = [a.copy() for a in arrays]
+        arrays[4][1, 5] = 200
+        for a in arrays[:4]:
+            a[1, 5] = -1
+    try:
+        got = model_tiles(source, arrays, max_words, bit_offset, threads, v, lanes, checks,
+                          mutation=mutation)
+    except AssertionError as e:
+        assert "prefetch order" in str(e)
+        return
+    assert not _matches(got, _twin(source, arrays, max_words, bit_offset, checks))
 
 
 @pytest.mark.parametrize("seed", range(4))
