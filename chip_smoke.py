@@ -46,8 +46,9 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
 7. kernels B4a (vlc_compat_slots) and B4b (vlc_compat_fused4) against
    their twins on the 30 golden frames and on 480 frames of 400 x 600
    (16 copies of the golden sequence), and at q=12 and q=100 on 1 golden
-   frame, 30 noise frames of odd width and 30 flat and checkerboard
-   frames (B4b's last group of 128 blocks holds 68, 120 or all): exact;
+   frame, 30 noise frames of odd width, 30 flat and checkerboard frames
+   and 2 noise frames each of widths 601, 602 and 610 (rows read as bytes)
+   (the last group of 128 blocks holds 68, 120, 8 or all): exact;
 8. the q=85 path (f32 DCT): encode() and encode_from_planes() on the 16 x
    1080p frames byte-equal to the CPU path; the same bytes for 16 frames
    at once, 2 x 8 and 16 x 1 (first_frame_index), and with TF32 matmuls
@@ -58,8 +59,8 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    slots through B4a, then B2's checked form), and equals the CPU path's
    encode_compat on the 480 frames; the B4b and B4a launch counts went up;
 10. times: B3, B4b and B4a against their twins (B4b and B4a also as
-   the profiler's device time), q=85 encode()/encode_from_planes() and
-   compat encode_compat() in frames/s;
+   the profiler's device time, beside their bound), q=85
+   encode()/encode_from_planes() and compat encode_compat() in frames/s;
 11. kernel B6a (vlc_raw, the sanitizer's raw slots) against its twin on
    phase 2's planes (16 x 1080p, the 1000 x 1400 noise padded to 1408,
    2 x 1080p flat planes) at q=50, on the noise and the checkerboards at
@@ -111,7 +112,17 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    forced regrow at q=50 byte-equal to the CPU bytes of phase 4, and
    pack="fused" at q=85 to those of phase 8; B5 and the chosen kernel
    launch, B1, B2, B3 and B6a do not;
-21. times: K1-K4 against their twins, and the routes' frames/s.
+21. times: K1-K4 against their twins, and the routes' frames/s;
+22. the coefficients intake: a JPEG encoder's dequantized int16
+   coefficients of phase 2's 16 x 1080p planes (scipy's orthonormal 8x8
+   DCT, the Annex K tables at quality 75), a quarter of frame 0's luma
+   blocks replaced by int16 extremes; the IDCT and edge padding on the card
+   against the CPU's (exact); TorchMPEG1IntraEncoder.encode_from_coeffs on
+   the card byte-equal to encode_from_planes on the card from the CPU
+   IDCT's planes at q=50 (B1 and B2 launch), q=85 (B3 and B2), with fuse=8
+   and with a forced regrow; the IDCT and padding stage's ms beside its
+   bytes floor, and encode_from_coeffs against encode_from_planes in
+   frames/s.
 
 The line before the last is a JSON summary of the kernels (time, twin
 time, least time the card could take and what sets it, the time of one
@@ -216,6 +227,42 @@ def _pattern_planes(np, rng, content: str, n: int):
             hi = 128 if content == "checker" else 111
             p = 128 + rng.integers(100, hi, (n, 1, 1)) * (((yy + xx) & 1) * 2 - 1)
         out.append(np.ascontiguousarray(p, dtype=np.uint8))
+    return out
+
+
+# JPEG Annex K tables K.1 (luminance) and K.2 (chrominance)
+JPEG_LUMA = [16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+             14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+             18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+             49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99]
+JPEG_CHROMA = [17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+               24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99] + [99] * 32
+
+
+def _jpeg_coeffs(np, planes, seed: int):
+    """A JPEG encoder's dequantized coefficients of the 4:2:0 planes, as
+    `io/jpeg.decode_coeffs_batch` gives them ((B, blocks, 64) int16,
+    natural order, raster block order) for a HEIGHT x WIDTH frame: the
+    orthonormal 8x8 DCT of each block minus 128, quantized by the Annex K
+    tables scaled to quality 75, dequantized; a quarter of frame 0's luma blocks
+    replaced by int16 extremes (-32768, -32767, 0, 32767)."""
+    from scipy.fft import dctn
+
+    rng = np.random.default_rng(seed)
+    ch, cw = -(-HEIGHT // 2), -(-WIDTH // 2)
+    out = []
+    for plane, (ph, pw), table in zip(planes, ((HEIGHT, WIDTH), (ch, cw), (ch, cw)),
+                                      (JPEG_LUMA, JPEG_CHROMA, JPEG_CHROMA)):
+        bh, bw = -(-ph // 8), -(-pw // 8)
+        px = plane[:, :bh * 8, :bw * 8].cpu().numpy().astype(np.float64) - 128
+        blocks = px.reshape(-1, bh, 8, bw, 8).transpose(0, 1, 3, 2, 4)
+        q = np.clip((np.array(table) * 50 + 50) // 100, 1, 255).reshape(8, 8)
+        f = np.round(dctn(blocks, axes=(-2, -1), norm="ortho") / q) * q
+        out.append(f.reshape(len(px), bh * bw, 64).astype(np.int16))
+    y = out[0]
+    pick = rng.random(y.shape[1]) < 0.25
+    y[0, pick] = np.array([-32768, -32767, 0, 32767], np.int16)[
+        rng.integers(0, 4, (int(pick.sum()), 64))]
     return out
 
 
@@ -334,6 +381,7 @@ def main() -> int:
         cuda_vlc_compat,
         cuda_vlc_levels,
         cuda_vlc_raw,
+        jpeg_device,
     )
     from ec504_imageencoder_tpu_torch.ops.bitpack import fuse4
     from ec504_imageencoder_tpu_torch.ops.color import (
@@ -588,6 +636,12 @@ def main() -> int:
                    "30 noise frames 150x101": tuple(
                        torch.from_numpy(erng.integers(0, 256, (30, 150, 101), dtype=np.uint8)).to(dev)
                        for _ in range(3))}
+    # widths around the golden frames' 600 whose rows the kernels read as
+    # bytes (W % 8 != 0), 2 frames each (a last group of 8 blocks)
+    for w in (601, 602, 610):
+        edge_planes[f"2 noise frames 150x{w}"] = tuple(
+            torch.from_numpy(erng.integers(0, 256, (2, 150, w), dtype=np.uint8)).to(dev)
+            for _ in range(3))
     yy, xx = np.indices((144, 96))
     for content in ("flat", "checker"):
         if content == "flat":
@@ -716,7 +770,8 @@ def main() -> int:
             # a compat launch is short enough that the wrapper's host cost
             # can show in the event time: the profiler's device time too
             print(f"{name} at {where}: device time (profiler records) "
-                  f"{_device_ms(torch, lambda: kernel(*args), 20)} {tag}")
+                  f"{_device_ms(torch, lambda: kernel(*args), 20)}, events "
+                  f"{times[name][0]:.4f} ms, bound {_bound(*work[name])[0]:.4f} ms {tag}")
     for label, fn, n in (
         (f"encode 16x1080p q={HQ_QUALITY}", lambda: hq.encode(frames), BATCH),
         (f"encode_from_planes 16x1080p q={HQ_QUALITY}",
@@ -1174,6 +1229,67 @@ def main() -> int:
             fps, ms = _frames_per_s(torch, fn, BATCH, 3)
             print(f"pack={pack!r} {label} 16x1080p q={QUALITY}: {fps:.2f} frames/s "
                   f"({ms:.2f} ms per batch) {tag}")
+
+    # ---- 22. the coefficients intake (encode_from_coeffs) ------------------
+    torch.cuda.empty_cache()
+    coeffs = _jpeg_coeffs(np, planes_hd, SEED + 22)
+    del planes_hd
+    h, w = HEIGHT, WIDTH
+    n_coeffs = sum(c.size for c in coeffs)
+    t0 = time.perf_counter()
+    cpu_planes = mpeg1.coeffs_to_planes(*(torch.from_numpy(c).int() for c in coeffs), h, w)
+    cpu_crop = jpeg_device.decode_planes_from_coeffs(*(torch.from_numpy(c) for c in coeffs), h, w)
+    print(f"coefficients of {BATCH} x {h}x{w} (JPEG Annex K tables at quality 75, dequantized, "
+          f"int16; {n_coeffs} of them, int16 extremes in frame 0): the CPU IDCT took "
+          f"{time.perf_counter() - t0:.2f} s on the host")
+    dev16 = [torch.from_numpy(c).to(dev) for c in coeffs]
+    card_planes = mpeg1.coeffs_to_planes(*(c.int() for c in dev16), h, w)
+    torch.cuda.synchronize()
+    idct_err = _max_abs_err(torch, card_planes, [p.to(dev) for p in cpu_planes])
+    print(f"IDCT and padding on the card vs the CPU: planes {[tuple(p.shape) for p in card_planes]}, "
+          f"max_abs_err {idct_err}")
+    if idct_err != 0:
+        raise AssertionError("the card's IDCT planes differ from the CPU's")
+    del card_planes, cpu_planes
+    planes_np = [p.numpy() for p in cpu_crop]
+    for label, kw, must in (
+        (f"q={QUALITY}", {"quality": QUALITY}, ("vlc_fused4", "pack_fused4")),
+        (f"q={HQ_QUALITY}", {"quality": HQ_QUALITY}, ("vlc_levels4", "pack_fused4")),
+        (f"q={QUALITY} fuse=8", {"quality": QUALITY, "fuse": 8}, fuse8_kernels),
+        (f"q={QUALITY} from a 2560 B buffer", {"quality": QUALITY, "max_slice_bytes": 2560},
+         ("vlc_fused4", "pack_fused4")),
+    ):
+        reset_launches()
+        enc_c = TorchMPEG1IntraEncoder(device=dev, **kw)
+        got = enc_c.encode_from_coeffs(*coeffs, h, w)
+        _check_launches(f"encode_from_coeffs {label}", read_launches(), must)
+        if "max_slice_bytes" in kw:
+            if enc_c.max_slice_bytes <= 2560:
+                raise AssertionError("the encode_from_coeffs forced-regrow run did not regrow")
+            print(f"encode_from_coeffs regrow: 2560 B -> {enc_c.max_slice_bytes} B per slice")
+        want = TorchMPEG1IntraEncoder(device=dev, **kw).encode_from_planes(*planes_np)
+        print(f"encode_from_coeffs {label}: {len(got)} B, encode_from_planes on the CPU IDCT's "
+              f"planes {len(want)} B, equal {got == want}")
+        if got != want:
+            raise AssertionError(f"encode_from_coeffs {label} differs from encode_from_planes")
+    stage = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = mpeg1.coeffs_to_planes(*(c.int() for c in dev16), h, w)
+        torch.cuda.synchronize()
+        stage.append(1e3 * (time.perf_counter() - t0))
+    floor_ms = 1e3 * (2 * n_coeffs + sum(p.numel() for p in out)) / MEM_BYTES_PER_S
+    print(f"IDCT + padding stage on the card, {BATCH} x {h}x{w}: median "
+          f"{sorted(stage)[len(stage) // 2]:.4f} ms (min {min(stage):.4f}) against a bytes floor "
+          f"of {floor_ms:.4f} ms ({2 * n_coeffs / 1e6:.1f} MB int16 in, "
+          f"{sum(p.numel() for p in out) / 1e6:.1f} MB u8 out) {tag}")
+    del out, dev16
+    enc_c = TorchMPEG1IntraEncoder(quality=QUALITY, device=dev)
+    for label, fn in (("encode_from_coeffs", lambda: enc_c.encode_from_coeffs(*coeffs, h, w)),
+                      ("encode_from_planes", lambda: enc_c.encode_from_planes(*planes_np))):
+        fps, ms = _frames_per_s(torch, fn, BATCH, 3)
+        print(f"{label} 16x1080p q={QUALITY}: {fps:.2f} frames/s ({ms:.2f} ms per batch) {tag}")
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {tag}")
 
     src = "ec504_imageencoder_tpu_torch/csrc/"

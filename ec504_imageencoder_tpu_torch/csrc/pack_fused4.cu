@@ -47,8 +47,8 @@
 // in the zeroed output row in global memory instead.  A final coalesced
 // pass byte-swaps the words into stream byte order.
 //
-// The tile loop: K1's pack_raw_kernel, and pack_tiles_kernel, one body over
-// a slot source for K2, B2 and B2 checked.  A chunk loop that scans a
+// The tile loop: pack_tiles_kernel, one body over a slot source for K1,
+// K2, B2 and B2 checked.  A chunk loop that scans a
 // chunk's lengths and only then loads its words pays two dependent global
 // round trips and three barriers per chunk, and nothing is in flight across
 // a barrier: latency, not bytes (K1 took 0.41 ms on it, B2 0.17, K2 0.27,
@@ -63,13 +63,12 @@
 // allow the vector loads loads scalars.  The geometries were chosen by time
 // on the card (tools/pack_variants.py; CUDA events at 16 x 1080p q=50,
 // NVIDIA H100 80GB HBM3, 700.00 W):
-// - K1: 128 threads x 4 codes, 40 registers, 9 blocks per SM, so a 16 x
-//   1080p batch's 1,088 slices run in one wave on 132 SMs: 0.16 ms (bound
-//   0.13).  Other geometries measured within 7% of it (8 or 16 codes per
-//   thread, 256 or 512 threads; 16 codes, at 86-94 registers, 3% faster).
-//   K1 keeps a kernel of its own: as a source of pack_tiles_kernel its
-//   shared-memory, scalar-load form compiled to 42 registers instead of 40
-//   in every arrangement tried.
+// - K1 (Raw): 128 threads x 4 codes, 40-42 registers, 9 blocks per SM, so a
+//   16 x 1080p batch's 1,088 slices run in one wave on 132 SMs: 0.16 ms
+//   (bound 0.13).  Other geometries measured within 7% of it (8 or 16 codes
+//   per thread, 256 or 512 threads; 16 codes, at 86-94 registers, 3%
+//   faster).  Its own copy of the loop, at 40 registers in every form, was
+//   no faster than this source's (42 in the shared-memory scalar-load form).
 // - K2 (Pairs): K1's geometry, loads and scan (a thread's pair lengths sum
 //   to its code lengths); each thread fuses its codes (0, 1) and (2, 3) and
 //   places two pairs from a 96-bit window: 0.19 ms.  An odd k's last code
@@ -161,13 +160,11 @@ __device__ __forceinline__ void place_window(const uint32_t u[kWords + 1], int l
   }
 }
 
-// ---- K1: raw codes, whole tiles per thread --------------------------------
+// ---- K1's and K2's geometry, loads and placement ---------------------------
 
 constexpr int kRawThreads = 128;
-constexpr int kRawWarps = kRawThreads / 32;
-constexpr int kRawMinBlocks = 9;               // blocks per SM (<= 56 registers)
-constexpr int kRawV = 4;                       // consecutive codes per thread
-constexpr int kRawTile = kRawThreads * kRawV;  // codes per tile
+constexpr int kRawMinBlocks = 9;  // blocks per SM (<= 56 registers)
+constexpr int kRawV = 4;          // consecutive codes per thread
 
 // One thread's kRawV codes and lengths of a tile.
 struct RawCodes {
@@ -219,64 +216,11 @@ __device__ __forceinline__ void place_raw(uint32_t code, int len, int off, uint3
   if (w1 && (unsigned)(word + 1) < (unsigned)max_words) atomicOr(&buf[word + 1], w1);
 }
 
-template <bool kShared, bool kVec>
-__global__ void __launch_bounds__(kRawThreads, kRawMinBlocks)
-pack_raw_kernel(const int32_t* __restrict__ codes, const int32_t* __restrict__ lens, int k,
-                int max_words, int bit_offset, uint32_t* __restrict__ seg_words,
-                int32_t* __restrict__ nbits) {
-  extern __shared__ uint32_t s_buf[];
-  __shared__ int s_warp[2][kRawWarps];  // warp totals of tiles 2m and 2m + 1
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int row = blockIdx.x;
-  codes += (size_t)row * k;
-  lens += (size_t)row * k;
-  uint32_t* out = seg_words + (size_t)row * max_words;
-  uint32_t* buf = kShared ? s_buf : out;
-
-  RawCodes cur, nxt;
-  load_raw<kVec>(codes, lens, k, kRawV * tid, cur);
-  for (int i = tid; i < max_words; i += kRawThreads) buf[i] = 0u;
-  int carry = bit_offset;  // the row's bits before the tile, in every thread
-  const int ntiles = (k + kRawTile - 1) / kRawTile;
-  for (int t = 0; t < ntiles; ++t) {
-    // tile t + 1 in flight (past the row: no load) while tile t is placed
-    load_raw<kVec>(codes, lens, k, (t + 1) * kRawTile + kRawV * tid, nxt);
-    int sum = 0;
-#pragma unroll
-    for (int e = 0; e < kRawV; ++e) sum += cur.l[e];
-    const int incl = warp_inclusive_scan(sum, lane);
-    if (lane == 31) s_warp[t & 1][warp] = incl;
-    // the warp totals are complete (and, at t = 0, the buffer zeroed); the
-    // other half of s_warp was last read before the previous barrier
-    __syncthreads();
-    int before = 0, total = 0;
-#pragma unroll
-    for (int w = 0; w < kRawWarps; ++w) {
-      const int v = s_warp[t & 1][w];
-      before += w < warp ? v : 0;
-      total += v;
-    }
-    int off = carry + before + incl - sum;
-    carry += total;
-#pragma unroll
-    for (int e = 0; e < kRawV; ++e) {
-      place_raw(cur.c[e], cur.l[e], off, buf, max_words);
-      off += cur.l[e];
-    }
-    cur = nxt;
-  }
-  __syncthreads();  // every code placed
-  if (tid == 0) nbits[row] = carry;
-  // stream byte order: word w's most significant byte first
-  for (int i = tid; i < max_words; i += kRawThreads) out[i] = __byte_perm(buf[i], 0u, 0x0123);
-}
-
-// ---- the tile loop: K2, B2 and B2 checked ---------------------------------
+// ---- the tile loop: K1, K2, B2 and B2 checked -----------------------------
 
 // B2's geometry: threads per block, the least blocks per SM the launch
 // bounds ask for (<= 64 registers) and consecutive fused slots per thread
-// (2, 4 or 8).  K2 runs K1's (kRaw*).
+// (2, 4 or 8).  K1 and K2 run kRaw*.
 constexpr int kFusedThreads = 512;
 constexpr int kFusedMinBlocks = 2;
 constexpr int kFusedV = 4;
@@ -316,11 +260,9 @@ __device__ __forceinline__ void load_run(const int32_t* __restrict__ p, int k, i
 // slots (their lengths l among what it holds), the loads of a tile (load)
 // and the placement of its slots from bit offset off on.
 
-// K2: (n, k) raw codes of <= 32 bits and their lengths, loaded as K1 loads
-// them; the thread's codes (0, 1), (2, 3), ... fused as the reference's
-// `_fuse2_32` does (a code of length 0 contributes nothing) and placed as
-// one value of <= 64 bits each.
-struct Pairs {
+// K1 and K2 read (n, k) raw codes of <= 32 bits and their lengths alike:
+// K1's geometry, kRawV codes per thread, loaded by load_raw.
+struct RawSource {
   static constexpr int kThreads = kRawThreads, kMinBlocks = kRawMinBlocks, kV = kRawV;
   using Tile = RawCodes;
   const int32_t* codes;
@@ -333,6 +275,25 @@ struct Pairs {
   __device__ __forceinline__ void load(int k, int i, Tile& t) const {
     load_raw<kVec>(codes, lens, k, i, t);
   }
+};
+
+// K1: each code placed on its own.
+struct Raw : RawSource {
+  template <bool kChecks>
+  __device__ __forceinline__ static void place(const Tile& t, int off, uint32_t* buf,
+                                               int max_words, int&) {
+#pragma unroll
+    for (int e = 0; e < kV; ++e) {
+      place_raw(t.c[e], t.l[e], off, buf, max_words);
+      off += t.l[e];
+    }
+  }
+};
+
+// K2: the thread's raw codes (0, 1), (2, 3), ... fused as the reference's
+// `_fuse2_32` does (a code of length 0 contributes nothing) and placed as
+// one value of <= 64 bits each.
+struct Pairs : RawSource {
   template <bool kChecks>
   __device__ __forceinline__ static void place(const Tile& t, int off, uint32_t* buf,
                                                int max_words, int& hits) {
@@ -544,20 +505,6 @@ cudaError_t launch_tiles(const Src& src, int n, int k, int max_words, int bit_of
   return cudaGetLastError();
 }
 
-template <bool kShared, bool kVec>
-cudaError_t launch_raw(const int32_t* codes, const int32_t* lens, int n, int k, int max_words,
-                       int bit_offset, void* seg, void* nbits, cudaStream_t s) {
-  const size_t bytes = kShared ? (size_t)max_words * 4 : 0;
-  if constexpr (kShared) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        pack_raw_kernel<kShared, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return err;
-  }
-  pack_raw_kernel<kShared, kVec><<<n, kRawThreads, bytes, s>>>(
-      codes, lens, k, max_words, bit_offset, (uint32_t*)seg, (int32_t*)nbits);
-  return cudaGetLastError();
-}
-
 bool aligned(const void* p, size_t bytes) { return ((uintptr_t)p % bytes) == 0; }
 
 // One tile-loop launch: the buffer regime and the loads (vector when `vec`).
@@ -644,25 +591,12 @@ extern "C" int pack_fused8_launch(const void* w0, const void* w1, const void* w2
 extern "C" int pack_raw_launch(const void* codes, const void* lens, int n, int k, int max_words,
                                int bit_offset, void* seg, void* nbits, int device,
                                void* stream) {
-  if (n < 0 || k < 0 || max_words <= 0) return (int)cudaErrorInvalidValue;
-  const DeviceGuard guard(device);
-  cudaError_t err = guard.error();
-  if (err != cudaSuccess) return (int)err;
-  if (n == 0) return (int)cudaSuccess;
-  bool shared = false;
-  err = fits_shared(device, max_words, sizeof(int[2][kRawWarps]), &shared);
-  if (err != cudaSuccess) return (int)err;
+  Raw src;
+  src.codes = (const int32_t*)codes;
+  src.lens = (const int32_t*)lens;
   const bool vec = k % 4 == 0 && aligned(codes, 16) && aligned(lens, 16);
-  const int32_t* c = (const int32_t*)codes;
-  const int32_t* l = (const int32_t*)lens;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (shared)
-    err = vec ? launch_raw<true, true>(c, l, n, k, max_words, bit_offset, seg, nbits, s)
-              : launch_raw<true, false>(c, l, n, k, max_words, bit_offset, seg, nbits, s);
-  else
-    err = vec ? launch_raw<false, true>(c, l, n, k, max_words, bit_offset, seg, nbits, s)
-              : launch_raw<false, false>(c, l, n, k, max_words, bit_offset, seg, nbits, s);
-  return (int)err;
+  return dispatch_tiles<Raw, false>(src, n, k, max_words, bit_offset, vec, seg, nbits, nullptr,
+                                    device, stream);
 }
 
 // K2: the same raw codes, fused 2:1 after they are loaded.

@@ -2,8 +2,9 @@
 // (vlc_fused4.cu: B1, B6b, B6a): where an 8x8 block of a slice row starts,
 // its quantized DC from the pixel sum, the integer AAN DCT of its pixels
 // and the ISO intra quantization + zigzag into a swizzled block-major
-// layout in shared memory.  B4b (vlc_compat.cu) scatters its compat levels
-// into the same layout and reads them back with SwizzledLevels.
+// layout in shared memory.  B4a and B4b (vlc_compat.cu) scatter their
+// compat levels into the same layout and read them back with
+// SwizzledLevels.
 //
 // Every function mirrors the PyTorch twins (ops/cuda_vlc.py::blockize,
 // ops/dct.py::aan_dct, ops/quant.py::quantize_intra, ops/zigzag.py).

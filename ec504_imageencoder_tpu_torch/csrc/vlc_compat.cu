@@ -26,24 +26,34 @@
 // 512 B (raw) of slots.  The work is the DCT, 64 integer divisions and the
 // emission: integer instruction throughput and latency.
 //
-// B4a: one CUDA block per slice row, one thread per 8x8 block (54 of 64
-// threads busy), the pixels read straight from the planes, the DCT in
-// registers, the zigzag levels in a per-thread column of shared memory and
-// a 64-step serial emission; its slot-major stores are coalesced.
-//
-// B4b: compat blocks are independent (an absolute DC, a macroblock header
-// that depends only on n % 6, the EOB always in slot 63), and its output
-// index (row * 54 + n) * 16 + j is the flat block index g = row * 54 + n
-// times 16, plus j.  So a CUDA block of 128 threads takes 128 consecutive
-// flat blocks, across slice rows and frames: a thread per block for the
-// DCT, the division and the zigzag into B1's swizzled block-major levels
-// (planes_dct.cuh), then B1's emission lanes (vlc_emit.cuh): a half-warp
-// per block, lane j emitting slots 4j .. 4j+3 and storing their 4:1 value
-// at g * 16 + j, so each warp store writes 32 consecutive int32.  The
-// compat rules come from ballots instead of a serial carry
-// (compat_lane_slots).  Before it: one CUDA block per slice row, a thread
-// per block from DCT to store, 64 B between neighbouring threads' stores,
-// 0.21 ms for 480 frames (NVIDIA H100 80GB HBM3, 700.00 W).
+// Compat blocks are independent (an absolute DC, a macroblock header that
+// depends only on n % 6, the EOB always in slot 63), so both kernels take
+// the batch's blocks as one flat sequence, g = row * 54 + n, 128
+// consecutive blocks a CUDA block, across slice rows and frames:
+//  - the compat DCT phase (compat_dct_phase), shared by both: a thread per
+//    block reads its pixels (as bytes, or as 4-byte words when W % 8 == 0
+//    and the planes are 4-byte aligned: then every luma and chroma row of a
+//    block starts on a multiple of 4), runs the AAN DCT, divides by the
+//    scaled matrix as C's `/` does through a multiply-high by a per-entry
+//    multiplier built once per CUDA block (compat_div), and scatters the
+//    zigzag levels into B1's swizzled block-major layout (planes_dct.cuh);
+//  - the emission (compat_emission): B1's lanes (vlc_emit.cuh), a half-warp
+//    per block, lane j emitting slots 4j .. 4j+3, the compat rules from
+//    ballots instead of a serial carry (compat_lane_slots);
+//  - B4b stores each lane's 4:1 value at g * 16 + j (B1's store_fused4), so
+//    each warp store writes 32 consecutive int32;
+//  - B4a parks each lane's four slots as one word each (slot_word) where
+//    their levels were, and then lane t stores slot k of the warp's block
+//    t slot-major at (row * 64 + k) * 54 + n, B6a's store (all the codes,
+//    then the lens): for each k the warp's 32 consecutive blocks lie in at
+//    most two slice rows, so each store instruction writes at most two
+//    runs of consecutive words.  The store holds B4a: alone, from fixed
+//    slot words, it takes 0.062 of its 0.085 ms at 480 frames.
+// Before: B4a took a CUDA block of 64 threads per slice row (54 busy), a
+// thread per block from the DCT to a serial 64-step emission (0.09 ms for
+// 480 frames); B4b the same (0.21 ms) until its flat groups; each kernel
+// had its own copy of the DCT phase with 64 signed divisions a block
+// (NVIDIA H100 80GB HBM3, 700.00 W).
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -57,7 +67,7 @@ namespace {
 
 using namespace vlc;
 
-constexpr int kThreads = 64;           // B4a: threads of a CUDA block, 54 busy
+constexpr int kGroup = 128;          // threads of a CUDA block: the flat blocks of its group
 constexpr int kSlices = 6;           // column bands of the crop
 constexpr int kMbs = 9;              // macroblocks per band
 constexpr int kNB = kMbs * 6;        // 8x8 blocks per slice row
@@ -144,83 +154,6 @@ __device__ __forceinline__ uint32_t emit_ac_compat(int lvl, int& run, bool& drop
   return (base << 8) | lo;
 }
 
-// B4a: a thread per block, raw slots stored slot-major.
-__global__ void __launch_bounds__(kThreads)
-vlc_compat_slots_kernel(const uint8_t* __restrict__ y, const uint8_t* __restrict__ cb,
-                        const uint8_t* __restrict__ cr, int H, int W,
-                        const int32_t* __restrict__ scaled_q, const int32_t* __restrict__ zigzag,
-                        const int32_t* __restrict__ ac_code, const int32_t* __restrict__ ac_len,
-                        const int32_t* __restrict__ dc_code, const int32_t* __restrict__ dc_len,
-                        int32_t* __restrict__ codes, int32_t* __restrict__ lens) {
-  __shared__ int s_lv[64][kThreads];
-  __shared__ uint32_t s_ac[kAcRuns * kAcLevels];  // code | len << 16
-  __shared__ uint32_t s_dcc[2 * kDcSizes];        // code | len << 16, [luma][size]
-  __shared__ int s_q[64];
-  __shared__ int s_zpos[64];                      // natural index -> scan position
-
-  const int tid = threadIdx.x;
-  const int row = blockIdx.x;
-  const int b = row / kSlices, s = row - kSlices * (row / kSlices);
-
-  load_vlc_tables(s_ac, s_dcc, ac_code, ac_len, dc_code, dc_len, tid, kThreads);
-  if (tid < 64) {
-    s_q[tid] = scaled_q[tid];
-    s_zpos[zigzag[tid]] = tid;
-  }
-  __syncthreads();
-
-  const int n = tid;
-  if (n >= kNB) return;
-  const int comp = n - 6 * (n / 6);
-  int stride;
-  const uint8_t* p = compat_origin(y, cb, cr, b, s, n, H, W, &stride);
-  int x[8][8];
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) x[r][c] = p[r * stride + c];
-  aan_dct(x);
-#pragma unroll
-  for (int v = 0; v < 8; ++v)
-#pragma unroll
-    for (int u = 0; u < 8; ++u)  // C's int division truncates toward zero
-      s_lv[s_zpos[v * 8 + u]][tid] = x[v][u] / s_q[v * 8 + u];
-
-  const int dc = s_lv[0][tid];
-  int len0;
-  const uint32_t code0 = emit_dc_compat(dc, comp, s_dcc, len0);
-  int run = dc == 0;  // a zero DC is a zero before slot 1
-  bool dropped = false;
-  for (int j = 0; j < 16; ++j) {
-    uint32_t c[4];
-    int l[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int k = 4 * j + i;
-      if (k == 0) {
-        c[i] = code0;
-        l[i] = len0;
-        continue;
-      }
-      c[i] = emit_ac_compat(s_lv[k][tid], run, dropped, s_ac, l[i]);
-      if (k == 63) {  // end of block '10'
-        c[i] = (c[i] << 2) | 2u;
-        l[i] += 2;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const size_t o = ((size_t)row * 64 + 4 * j + i) * kNB + n;
-      codes[o] = (int32_t)c[i];
-      lens[o] = l[i];
-    }
-  }
-}
-
-// ---- B4b: flat groups of 128 blocks, B1's emission lanes ------------------
-
-constexpr int kGroup = 128;  // threads of a CUDA block: the flat blocks of its group
-
 // Slots 4j .. 4j+3 of the half-warp's block under the compat rules (lane =
 // the lane in the warp, j = lane & 15; lv = levels 4j .. 4j+3, lv[0] of
 // lane 0 the DC; code0 / len0: the DC slot, read on lane 0 only), emitted
@@ -274,75 +207,216 @@ __device__ __forceinline__ void compat_lane_slots(const int lv[4], int lane, uin
   }
 }
 
-// B4b: blocks g of the batch (flat, frame-major, 54 per slice row, nblk in
-// all), kGroup per CUDA block; out: the 4:1-fused slots, g * 16 + j.
-__global__ void __launch_bounds__(kGroup)
+// ---- both kernels: flat groups of 128 blocks -------------------------------
+
+// The largest divisor compat_div's multiply-high serves.
+constexpr int kMaxMulQ = 65535;
+// The least CUDA blocks per SM the launch bounds ask for, B4a's and B4b's.
+// B4a compiles to 112 registers (4 blocks); B4b held to 5 blocks (96
+// registers, 40 B spilled) took 0.054 ms instead of 0.058, B4a held to 5
+// 0.089 instead of 0.085 (tools/compat_variants.py, 480 frames; NVIDIA H100
+// 80GB HBM3, 700.00 W).
+constexpr int kMinBlocksRaw = 4;
+constexpr int kMinBlocksFused = 5;
+
+// What both kernels keep in shared memory.
+struct CompatShared {
+  int lv[kGroup * 64];               // the group's levels, swizzled block-major (planes_dct.cuh)
+  uint32_t ac[kAcRuns * kAcLevels];  // code | len << 16
+  uint32_t dcc[2 * kDcSizes];        // code | len << 16, [luma][size]
+  int q[64];                         // the scaled matrix, natural order
+  uint32_t m[64];                    // compat_div's multiplier of each entry
+  int zpos[64];                      // natural index -> swizzled scan position
+
+  // The tables, from every thread of the CUDA block; then __syncthreads().
+  __device__ __forceinline__ void load(const int32_t* scaled_q, const int32_t* zigzag,
+                                       const int32_t* ac_code, const int32_t* ac_len,
+                                       const int32_t* dc_code, const int32_t* dc_len, int tid) {
+    load_vlc_tables(ac, dcc, ac_code, ac_len, dc_code, dc_len, tid, kGroup);
+    if (tid < 64) {
+      const int d = scaled_q[tid];
+      q[tid] = d;
+      m[tid] = d >= 1 && d <= kMaxMulQ ? 0x80000000u / (uint32_t)d + 1u : 0u;
+      zpos[zigzag[tid]] = swizzle_slot(tid);
+    }
+  }
+};
+
+// C's x / d, truncated toward zero, for |x| < 2^15 (every coefficient the
+// AAN DCT makes of 8-bit pixels), with m = 2^31 / d + 1 = (2^31 + e) / d,
+// 0 < e <= d: |x| / d rounded down is floor(2|x| m / 2^32) = floor(|x| / d
+// + |x| e / (d 2^31)), and |x| e < 2^31 for d <= 65535 keeps the second
+// term below the distance from |x| / d to the next integer.  m = 0 (any
+// other d): C's `/`.  tests/test_torch_compat_store.py checks every such x
+// against every d that scale_quantization_matrix gives at quality 1..100.
+// Against `/` it cut the DCT phase from 0.031 to 0.028 ms at 480 frames
+// (tools/compat_variants.py).
+__device__ __forceinline__ int compat_div(int x, int d, uint32_t m) {
+  if (m == 0u) return x / d;
+  const int k = (int)__umulhi((uint32_t)abs(x) << 1, m);
+  return x < 0 ? -k : k;
+}
+
+// The compat DCT phase of both kernels: thread tid takes flat block g0 +
+// tid of nblk (frame-major slice rows of kNB blocks): its 64 pixels (kWide:
+// two 4-byte loads a row, else byte loads), the AAN DCT, compat_div and the
+// zigzag into the group's swizzled levels, level k at word tid * 64 +
+// (swizzle_slot(k) ^ lane).
+template <bool kWide>
+__device__ __forceinline__ void compat_dct_phase(const uint8_t* __restrict__ y,
+                                                 const uint8_t* __restrict__ cb,
+                                                 const uint8_t* __restrict__ cr, int H, int W,
+                                                 int nblk, int g0, int tid, CompatShared& sh) {
+  const int g = g0 + tid;
+  if (g >= nblk) return;
+  const int row = g / kNB, n = g - kNB * row;
+  const int b = row / kSlices, s = row - kSlices * b;
+  int stride;
+  const uint8_t* p = compat_origin(y, cb, cr, b, s, n, H, W, &stride);
+  int x[8][8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    if constexpr (kWide) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t w = __ldg(reinterpret_cast<const uint32_t*>(p + r * stride) + h);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) x[r][4 * h + i] = (w >> (8 * i)) & 0xFFu;
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < 8; ++c) x[r][c] = __ldg(p + r * stride + c);
+    }
+  }
+  aan_dct(x);
+  int* const blk = sh.lv + tid * 64;
+  const int lane = tid & 31;
+#pragma unroll
+  for (int v = 0; v < 8; ++v)
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int i = v * 8 + u;
+      blk[sh.zpos[i] ^ lane] = compat_div(x[v][u], sh.q[i], sh.m[i]);
+    }
+}
+
+// The emission of a group, after its DCT phase: each warp its own 32
+// blocks, two per pass (lanes 0-15 and 16-31, neighbours in stream order).
+// nblk and g0 are even, so the warp's pass count is uniform: 16, fewer in
+// the last group, or none.  Lane j of the half-warp on the group's block t
+// (flat block g) reads levels 4j .. 4j+3, emits their slots and hands them
+// to emit(t, g, j, c, l).
+template <class Emit>
+__device__ __forceinline__ void compat_emission(const CompatShared& sh, int g0, int nblk,
+                                                int tid, Emit emit) {
+  const int lane = tid & 31, warp0 = tid - lane, j = lane & 15;
+  const int passes = min(16, (nblk - g0 - warp0) / 2);
+  for (int q = 0; q < passes; ++q) {
+    const int t = warp0 + 2 * q + (lane >> 4);
+    const int g = g0 + t;
+    int lv[4];
+    SwizzledLevels{sh.lv + t * 64, t}(j, lv);
+    uint32_t code0 = 0;
+    int len0 = 0;
+    if (j == 0) code0 = emit_dc_compat(lv[0], g % 6, sh.dcc, len0);  // n % 6 == g % 6
+    uint32_t c[4];
+    int l[4];
+    compat_lane_slots(lv, lane, code0, len0, sh.ac, c, l);
+    emit(t, g, j, c, l);
+  }
+}
+
+// B4a's store: the group's parked slot words (level k's word of each
+// block) go out slot-major, codes and lens at (row * 64 + k) * kNB + n:
+// lane t of the warp stores slot k of the warp's block t, the codes of
+// every k and then the lens.  For each k the warp's 32 blocks lie in at
+// most two slice rows, so each store instruction writes at most two runs
+// of consecutive words.  Measured alternatives, all slower
+// (tools/compat_variants.py, 480 frames): the codes and lens of each k in
+// one loop (0.087 ms against 0.085), pairs of blocks in int2 stores (0.086),
+// streaming stores (0.086), and the CUDA block storing each slice row's
+// runs after a barrier (0.096).
+__device__ __forceinline__ void store_raw_slots(const int* lv, int g0, int nblk, int tid,
+                                                int32_t* __restrict__ codes,
+                                                int32_t* __restrict__ lens) {
+  __syncwarp();
+  const int g = g0 + tid;
+  if (g >= nblk) return;
+  const int row = g / kNB, n = g - kNB * row, lane = tid & 31;
+  const int* const blk = lv + tid * 64;
+  int32_t* const cp = codes + (size_t)row * 64 * kNB + n;
+  int32_t* const lp = lens + (size_t)row * 64 * kNB + n;
+#pragma unroll 8
+  for (int k = 0; k < 64; ++k) {
+    const uint32_t w = (uint32_t)blk[swizzle_slot(k) ^ lane];
+    cp[k * kNB] = (int32_t)(w ^ (1u << slot_word_len(w)));
+  }
+#pragma unroll 8
+  for (int k = 0; k < 64; ++k) lp[k * kNB] = slot_word_len((uint32_t)blk[swizzle_slot(k) ^ lane]);
+}
+
+// B4a's emission: each lane parks its four slots as one word each where
+// their levels were (slot_word); then store_raw_slots.
+__device__ __forceinline__ void emit_raw_slots(CompatShared& sh, int g0, int nblk, int tid,
+                                               int32_t* __restrict__ codes,
+                                               int32_t* __restrict__ lens) {
+  int* const lv = sh.lv;
+  compat_emission(sh, g0, nblk, tid, [lv](int t, int, int j, const uint32_t* c, const int* l) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) lv[t * 64 + swizzled_word(t, j, i)] = (int)slot_word(c[i], l[i]);
+  });
+  store_raw_slots(lv, g0, nblk, tid, codes, lens);
+}
+
+// B4a: raw slots, (nblk / 54, 64, 54) codes and lens.
+template <bool kWide>
+__global__ void __launch_bounds__(kGroup, kMinBlocksRaw)
+vlc_compat_slots_kernel(const uint8_t* __restrict__ y, const uint8_t* __restrict__ cb,
+                        const uint8_t* __restrict__ cr, int H, int W, int nblk,
+                        const int32_t* __restrict__ scaled_q, const int32_t* __restrict__ zigzag,
+                        const int32_t* __restrict__ ac_code, const int32_t* __restrict__ ac_len,
+                        const int32_t* __restrict__ dc_code, const int32_t* __restrict__ dc_len,
+                        int32_t* __restrict__ codes, int32_t* __restrict__ lens) {
+  __shared__ CompatShared sh;
+  const int tid = threadIdx.x, g0 = blockIdx.x * kGroup;
+  sh.load(scaled_q, zigzag, ac_code, ac_len, dc_code, dc_len, tid);
+  __syncthreads();
+  compat_dct_phase<kWide>(y, cb, cr, H, W, nblk, g0, tid, sh);
+  __syncwarp();  // a warp emits only the blocks it transformed
+  emit_raw_slots(sh, g0, nblk, tid, codes, lens);
+}
+
+// B4b: 4:1-fused slots, g * 16 + j.
+template <bool kWide>
+__global__ void __launch_bounds__(kGroup, kMinBlocksFused)
 vlc_compat_fused4_kernel(const uint8_t* __restrict__ y, const uint8_t* __restrict__ cb,
                          const uint8_t* __restrict__ cr, int H, int W, int nblk,
                          const int32_t* __restrict__ scaled_q,
                          const int32_t* __restrict__ zigzag, const int32_t* __restrict__ ac_code,
                          const int32_t* __restrict__ ac_len, const int32_t* __restrict__ dc_code,
                          const int32_t* __restrict__ dc_len, FusedOut out) {
-  __shared__ int s_lv[kGroup * 64];               // swizzled block-major (planes_dct.cuh)
-  __shared__ uint32_t s_ac[kAcRuns * kAcLevels];  // code | len << 16
-  __shared__ uint32_t s_dcc[2 * kDcSizes];        // code | len << 16, [luma][size]
-  __shared__ int s_q[64];
-  __shared__ int s_zpos[64];                      // natural index -> swizzled scan position
-
-  const int tid = threadIdx.x, lane = tid & 31, warp0 = tid - lane;
-  const int g0 = blockIdx.x * kGroup;
-
-  load_vlc_tables(s_ac, s_dcc, ac_code, ac_len, dc_code, dc_len, tid, kGroup);
-  if (tid < 64) {
-    s_q[tid] = scaled_q[tid];
-    s_zpos[zigzag[tid]] = swizzle_slot(tid);
-  }
+  __shared__ CompatShared sh;
+  const int tid = threadIdx.x, g0 = blockIdx.x * kGroup;
+  sh.load(scaled_q, zigzag, ac_code, ac_len, dc_code, dc_len, tid);
   __syncthreads();
-
-  // DCT phase: thread tid, block g0 + tid
-  if (g0 + tid < nblk) {
-    const int g = g0 + tid;
-    const int row = g / kNB, n = g - kNB * row;
-    const int b = row / kSlices, s = row - kSlices * b;
-    int stride;
-    const uint8_t* p = compat_origin(y, cb, cr, b, s, n, H, W, &stride);
-    int x[8][8];
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) x[r][c] = p[r * stride + c];
-    aan_dct(x);
-    int* const blk = s_lv + tid * 64;
-#pragma unroll
-    for (int v = 0; v < 8; ++v)
-#pragma unroll
-      for (int u = 0; u < 8; ++u)  // C's int division truncates toward zero
-        blk[s_zpos[v * 8 + u] ^ lane] = x[v][u] / s_q[v * 8 + u];
-  }
-  __syncwarp();
-
-  // emission: each warp its own 32 blocks, two per pass (lanes 0-15 and
-  // 16-31, neighbours in stream order).  nblk and g0 are even, so the
-  // warp's pass count is uniform: 16, fewer in the last group, or none.
-  const int passes = min(16, (nblk - g0 - warp0) / 2);
-  const int j = lane & 15;
-  for (int q = 0; q < passes; ++q) {
-    const int t = warp0 + 2 * q + (lane >> 4);  // the block of this half-warp
-    const int g = g0 + t;
-    int lv[4];
-    SwizzledLevels{s_lv + t * 64, t}(j, lv);
-    uint32_t code0 = 0;
-    int len0 = 0;
-    if (j == 0) code0 = emit_dc_compat(lv[0], g % 6, s_dcc, len0);  // n % 6 == g % 6
-    uint32_t c[4];
-    int l[4];
-    compat_lane_slots(lv, lane, code0, len0, s_ac, c, l);
+  compat_dct_phase<kWide>(y, cb, cr, H, W, nblk, g0, tid, sh);
+  __syncwarp();  // a warp emits only the blocks it transformed
+  compat_emission(sh, g0, nblk, tid, [&out](int, int g, int j, const uint32_t* c, const int* l) {
     store_fused4(c, l, out, (size_t)g * 16 + j);
-  }
+  });
 }
 
 bool valid_frames(int batch, int H, int W) {
   return batch >= 0 && H >= kCropH && W >= kCropW && (long long)batch * kSlices * kNB <= INT_MAX;
+}
+
+// The byte loads or the 4-byte ones: W % 8 == 0 and every plane 4-byte
+// aligned put each block row of the crop on a multiple of 4 (the frame
+// size, luma offsets and rows are multiples of 8; chroma's half-width rows
+// and offsets multiples of 4).
+bool wide_loads(const void* y, const void* cb, const void* cr, int W) {
+  return W % 8 == 0 && (uintptr_t)y % 4 == 0 && (uintptr_t)cb % 4 == 0 &&
+         (uintptr_t)cr % 4 == 0;
 }
 
 }  // namespace
@@ -359,8 +433,11 @@ extern "C" int vlc_compat_slots_launch(const void* y, const void* cb, const void
   const cudaError_t err = guard.error();
   if (err != cudaSuccess) return (int)err;
   if (batch == 0) return (int)cudaSuccess;
-  vlc_compat_slots_kernel<<<batch * kSlices, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)y, (const uint8_t*)cb, (const uint8_t*)cr, H, W,
+  const int nblk = batch * kSlices * kNB;
+  const auto kernel = wide_loads(y, cb, cr, W) ? vlc_compat_slots_kernel<true>
+                                               : vlc_compat_slots_kernel<false>;
+  kernel<<<(nblk + kGroup - 1) / kGroup, kGroup, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)y, (const uint8_t*)cb, (const uint8_t*)cr, H, W, nblk,
       (const int32_t*)scaled_q, (const int32_t*)zigzag, (const int32_t*)ac_code,
       (const int32_t*)ac_len, (const int32_t*)dc_code, (const int32_t*)dc_len,
       (int32_t*)codes, (int32_t*)lens);
@@ -380,7 +457,9 @@ extern "C" int vlc_compat_fused4_launch(const void* y, const void* cb, const voi
   if (err != cudaSuccess) return (int)err;
   if (batch == 0) return (int)cudaSuccess;
   const int nblk = batch * kSlices * kNB;
-  vlc_compat_fused4_kernel<<<(nblk + kGroup - 1) / kGroup, kGroup, 0, (cudaStream_t)stream>>>(
+  const auto kernel = wide_loads(y, cb, cr, W) ? vlc_compat_fused4_kernel<true>
+                                               : vlc_compat_fused4_kernel<false>;
+  kernel<<<(nblk + kGroup - 1) / kGroup, kGroup, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)y, (const uint8_t*)cb, (const uint8_t*)cr, H, W, nblk,
       (const int32_t*)scaled_q, (const int32_t*)zigzag, (const int32_t*)ac_code,
       (const int32_t*)ac_len, (const int32_t*)dc_code, (const int32_t*)dc_len,

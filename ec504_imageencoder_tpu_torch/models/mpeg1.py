@@ -31,6 +31,11 @@ negated in its bit count.  On the generic route (a `pack` value) the slot
 invariants of the raw slots are checked after the pack, as the
 reference's generic route does.
 
+The coefficients intake (`encode_from_coeffs`) runs the JPEG decode's back
+half on the device first (`ops/jpeg_device.py`, plain torch: the islow
+IDCT, then the macroblock edge padding) and feeds the planes to the same
+routes.
+
 On the CPU the kernels' plain twins run instead.
 
 The host part is the port's own copy of the reference's: quality to
@@ -45,6 +50,7 @@ import torch
 from torch import nn
 
 from ec504_imageencoder_tpu_torch.device import resolve_device
+from ec504_imageencoder_tpu_torch.ops import jpeg_device
 from ec504_imageencoder_tpu_torch.ops.bitpack import fuse4, or_slice_headers
 from ec504_imageencoder_tpu_torch.ops.color import rgb_to_ycbcr, subsample_420
 from ec504_imageencoder_tpu_torch.ops.cuda_lut import block_streams_lut
@@ -322,6 +328,28 @@ def correct_pipeline_planes(core: EncodeCore, y, cb, cr, max_slice_bytes: int,
     return core(y, cb, cr, max_slice_bytes, debug_checks)
 
 
+def edge_pad(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """(..., h0, w0) -> (..., h, w) for h >= h0 and w >= w0: the last row
+    and column repeated, as `np.pad(mode="edge")` on the last two axes, by
+    clamped index gathers (any dtype, on the tensor's device)."""
+    h0, w0 = x.shape[-2:]
+    if (h0, w0) == (h, w):
+        return x
+    rows = torch.arange(h, device=x.device).clamp_(max=h0 - 1)
+    cols = torch.arange(w, device=x.device).clamp_(max=w0 - 1)
+    return x.index_select(-2, rows).index_select(-1, cols)
+
+
+def coeffs_to_planes(yc, cbc, crc, height: int, width: int):
+    """The front of the reference's `_jitted_coeffs_pipeline`: (B, blocks,
+    64) int32 dequantized JPEG coefficients -> the islow IDCT's 4:2:0
+    planes, cropped to height x width, then edge-padded on their device:
+    Y to multiples of 16, chroma to half of that."""
+    y, cb, cr = jpeg_device.decode_planes_from_coeffs(yc, cbc, crc, height, width)
+    th, tw = height + -height % 16, width + -width % 16
+    return edge_pad(y, th, tw), edge_pad(cb, th // 2, tw // 2), edge_pad(cr, th // 2, tw // 2)
+
+
 def correct_pipeline(core: EncodeCore, rgb, max_slice_bytes: int,
                      color_range: str = "studio", debug_checks: bool = False):
     """(B, H, W, 3) u8 RGB, H and W multiples of 16 -> (seg, nbits)."""
@@ -543,9 +571,39 @@ class TorchMPEG1IntraEncoder:
             f.write(data)
         return len(data)
 
+    def _coeffs_to_device(self, a) -> torch.Tensor:
+        """Coefficients (numpy or torch) copied to the device as they are,
+        2 B a sample for the int16 of `io/jpeg.decode_coeffs_batch`, then
+        widened to int32 there."""
+        t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
+        return t.to(self.device).to(torch.int32)
+
     def encode_from_coeffs(self, yc, cbc, crc, height: int, width: int,
                            first_frame_index: int = 0) -> bytes:
-        raise NotImplementedError(
-            "the JPEG coefficients intake is not ported yet (ROADMAP A6); "
-            "use encode_from_planes"
-        )
+        """Encode straight from dequantized JPEG coefficient blocks (the
+        reference's `io/jpeg.decode_coeffs_batch`: (B, blocks, 64) per
+        component, int16): the host has done the entropy decode only; the
+        islow IDCT (`ops/jpeg_device.py`, exact against stb_image), the
+        macroblock padding and the whole encode run on the device.  Like the
+        reference's planes intakes it stores the JPEG's full-range YCbCr as
+        it is (the rgb intake stores studio range)."""
+        ch, cw = -(-height // 2), -(-width // 2)
+        exp_y = (-(-height // 8) * -(-width // 8), 64)
+        exp_c = (-(-ch // 8) * -(-cw // 8), 64)
+        for name, arr, exp in (("Y", yc, exp_y), ("Cb", cbc, exp_c), ("Cr", crc, exp_c)):
+            if arr.ndim != 3 or tuple(arr.shape[1:]) != exp:
+                raise ValueError(
+                    f"{name} coefficients must be (B, {exp[0]}, 64) for "
+                    f"{width}x{height} 4:2:0, got {tuple(arr.shape)}"
+                )
+        if width > MAX_WIDTH or height > MAX_HEIGHT:
+            raise ValueError(
+                f"frame {width}x{height} exceeds MPEG-1 limits ({MAX_WIDTH}x{MAX_HEIGHT})"
+            )
+        y, cb, cr = coeffs_to_planes(*(self._coeffs_to_device(a) for a in (yc, cbc, crc)),
+                                     height, width)
+        mbw = y.shape[2] // 16
+        seg, bits = self._run_with_regrow(
+            lambda msb: correct_pipeline_planes(self.core, y, cb, cr, msb, self.debug_checks), mbw)
+        self._record(bits, mbw)
+        return self.assemble(seg, bits, width, height, first_frame_index)

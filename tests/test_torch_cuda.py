@@ -201,9 +201,12 @@ def test_f32_dct_same_bits_on_card_and_host(cuda):
         torch.backends.cuda.matmul.allow_tf32 = False
 
 
-# B4b takes flat groups of 128 blocks, 324 a frame: 1 frame leaves a last
-# group of 68, 2 of 8, 30 of 120, 480 none; 401 and 101 are odd widths
-COMPAT_SHAPES = [(2, 150, 401), (1, 144, 96), (30, 150, 101), (480, 144, 96)]
+# B4a and B4b take flat groups of 128 blocks, 324 a frame: 1 frame leaves a
+# last group of 68, 2 of 8, 30 of 120, 480 none; 401, 101 and 601 are odd
+# widths; at 602 and 610 (W % 8 != 0) the kernels read bytes, at 96 and
+# 600 4-byte words (chroma's half-width rows at 300 only 4-byte aligned)
+COMPAT_SHAPES = [(2, 150, 401), (1, 144, 96), (30, 150, 101), (480, 144, 96), (1, 144, 600),
+                 (2, 150, 601), (2, 150, 602), (1, 151, 610)]
 
 
 @pytest.mark.parametrize("content", ["noise", "flat", "checker"])
@@ -233,6 +236,32 @@ def test_compat_kernels_match_twins(cuda, quality, shape, content):
         got, want = kernel(*planes, q, luts), twin(*planes, q, luts)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+
+
+def test_compat_kernels_repeat_and_run_on_a_side_stream(cuda):
+    """B4a and B4b twice back to back, once on a side stream and once on
+    planes one byte off their alignment (the byte loads at W % 8 == 0) give
+    the twins' outputs."""
+    rng = np.random.default_rng(91)
+    planes = tuple(torch.from_numpy(rng.integers(0, 256, (3, 144, 96), dtype=np.uint8)).to(cuda)
+                   for _ in range(3))
+    shifted = tuple(torch.cat([p.new_zeros(1), p.reshape(-1)])[1:].view(p.shape) for p in planes)
+    q = torch.from_numpy(scale_quantization_matrix(50).astype(np.int32)).to(cuda)
+    luts = Luts.compat(cuda)
+    side = torch.cuda.Stream(cuda)
+    for fn, twin in ((cuda_vlc_compat.vlc_compat_slots, cuda_vlc_compat.vlc_compat_slots_plain),
+                     (cuda_vlc_compat.vlc_compat_fused4, cuda_vlc_compat.vlc_compat_fused4_plain)):
+        first, second = fn(*planes, q, luts), fn(*planes, q, luts)
+        side.wait_stream(torch.cuda.current_stream(cuda))
+        with torch.cuda.stream(side):
+            third = fn(*planes, q, luts)
+        torch.cuda.current_stream(cuda).wait_stream(side)
+        fourth = fn(*shifted, q, luts)
+        torch.cuda.synchronize(cuda)
+        want = twin(*planes, q, luts)
+        for got in (first, second, third, fourth):
+            for g, w in zip(got, want, strict=True):
+                assert torch.equal(g, w)
 
 
 def test_high_quality_and_compat_encoders(cuda, tmp_path):
@@ -620,3 +649,40 @@ def test_launch_leaves_the_current_device(cuda, kernel):
             assert torch.cuda.current_device() == current
         torch.cuda.synchronize(dev)
 
+
+# ---- the coefficients intake (A6) -----------------------------------------
+
+def _coeff_blocks(rng, b, h, w):
+    """Dequantized-looking int16 coefficient blocks of b frames of h x w."""
+    ch, cw = -(-h // 2), -(-w // 2)
+    out = []
+    for n in (-(-h // 8) * -(-w // 8), -(-ch // 8) * -(-cw // 8), -(-ch // 8) * -(-cw // 8)):
+        c = rng.integers(-64, 65, (b, n, 64)) * (rng.random((b, n, 64)) < 0.3)
+        c[..., 0] = rng.integers(-1024, 1024, (b, n))
+        out.append(c.astype(np.int16))
+    return out
+
+
+@pytest.mark.parametrize("quality", [50, 85])
+@pytest.mark.parametrize("h, w", [(16, 16), (37, 70), (299, 401), (1080, 1920)])
+def test_encode_from_coeffs_card_equals_cpu(cuda, h, w, quality):
+    """The IDCT and the padding on the card, then the kernels: the CPU
+    path's bytes, and the reference's numpy intake's."""
+    coeffs = _coeff_blocks(np.random.default_rng(h + w + quality), 2, h, w)
+    cuda_vlc.launches = cuda_vlc_levels.launches = cuda_pack.launches = 0
+    got = TorchMPEG1IntraEncoder(quality=quality, device=cuda).encode_from_coeffs(*coeffs, h, w)
+    assert cuda_pack.launches > 0
+    assert (cuda_vlc.launches if quality < 70 else cuda_vlc_levels.launches) > 0
+    assert got == TorchMPEG1IntraEncoder(quality=quality, device="cpu").encode_from_coeffs(
+        *coeffs, h, w)
+    assert got == MPEG1IntraEncoder(quality=quality, backend="numpy").encode_from_coeffs(
+        *coeffs, h, w)
+
+
+@pytest.mark.parametrize("shape, h, w", [((2, 5, 7), 16, 16), ((1, 150, 201), 150, 208),
+                                         ((3, 1, 1), 8, 8), ((2, 1080, 1920), 1088, 1920)])
+def test_edge_pad_on_card(cuda, shape, h, w):
+    x = np.random.default_rng(h + w).integers(0, 256, shape, dtype=np.uint8)
+    want = np.pad(x, ((0, 0), (0, h - shape[1]), (0, w - shape[2])), mode="edge")
+    got = mpeg1.edge_pad(torch.from_numpy(x).to(cuda), h, w)
+    assert got.is_cuda and np.array_equal(got.cpu().numpy(), want)

@@ -110,8 +110,11 @@ def test_unported_paths_raise():
     with pytest.raises(ValueError, match="dct_impl"):
         TorchMPEG1IntraEncoder(quality=80, dct_impl="int", device="cpu")
     port = TorchMPEG1IntraEncoder(quality=80, dct_impl="aan", device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        port.encode_from_coeffs(None, None, None, 16, 16)
+    # the coefficients intake is ported (tests/test_torch_jpeg.py); what
+    # it still refuses is coefficients of the wrong shape
+    with pytest.raises(ValueError, match="coefficients must be"):
+        port.encode_from_coeffs(np.zeros((1, 3, 64), np.int16), np.zeros((1, 1, 64), np.int16),
+                                np.zeros((1, 1, 64), np.int16), 16, 16)
 
 
 def test_cuda_device_is_never_replaced_by_the_cpu():

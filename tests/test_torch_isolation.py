@@ -36,6 +36,9 @@ enc = m.TorchMPEG1IntraEncoder(quality=50, device="cpu")
 es = enc.encode(frames)
 es2 = enc.encode_from_planes(frames[..., 0], frames[:, ::2, ::2, 1], frames[:, ::2, ::2, 2])
 assert es[:4] == es2[:4] == bytes([0, 0, 1, 0xB3])
+rng = np.random.default_rng(1)
+yc, cc = (rng.integers(-64, 65, (2, n, 64)).astype(np.int16) for n in (15, 6))  # 24 x 40, 4:2:0
+assert enc.encode_from_coeffs(yc, cc, cc, 24, 40)[:4] == es[:4]
 assert m.TorchMPEG1IntraEncoder(quality=50, fuse=8, device="cpu").encode(frames) == es
 for pack in m.PACKS:
     assert m.TorchMPEG1IntraEncoder(quality=50, pack=pack, device="cpu").encode(frames) == es

@@ -66,9 +66,9 @@ def _variant_source(src: str, consts: dict) -> str:
 
 
 def _ptxas(log: str) -> list[str]:
-    """One line per tile-loop kernel (K1's `pack_raw_kernel`, and
-    `pack_tiles_kernel` over its sources): its template arguments, registers,
-    spill stores and static shared memory."""
+    """One line per tile-loop kernel (`pack_tiles_kernel` over its sources;
+    a parent's own `pack_raw_kernel` for K1 too): its template arguments,
+    registers, spill stores and static shared memory."""
     out = []
     for m in re.finditer(r"entry function '(\S*(?:pack_tiles|pack_raw)_kernelI\S*)'.*?"
                          r"(\d+) bytes spill stores.*?"
