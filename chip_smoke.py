@@ -17,7 +17,9 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
 
 1. print the card's name and power limit (nvidia-smi) and build every
    CUDA kernel library from ec504_imageencoder_tpu_torch/csrc/, one nvcc
-   per source, all at once (cold build time);
+   per source, all at once (cold build time), then the three host
+   libraries of io/native/ (the JPEG decoder, the C ABI shim and its JNI
+   binding), one g++ each, all at once (cold build time);
 2. kernel B1 (vlc_fused4) against its plain PyTorch twin on the card, on
    16 x 1080p planes of natural content, on 1000 x 1400 noise (padded to
    1408: 528 blocks a slice row, a half-warp in B1's last group of 128, as
@@ -122,7 +124,24 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    IDCT's planes at q=50 (B1 and B2 launch), q=85 (B3 and B2), with fuse=8
    and with a forced regrow; the IDCT and padding stage's ms beside its
    bytes floor, and encode_from_coeffs against encode_from_planes in
-   frames/s.
+   frames/s;
+23. the entry points on JPEG folders made of the committed fixtures
+   (tests/data/torch_jpegs, written by tools/make_torch_jpegs.py): the
+   native decoder alone (RGB, planes, coefficients) in frames/s over 40
+   1080p JPEGs; the CLI (`cli.main`) with --stream --batch 16 on the card
+   with --intake ycbcr, coeffs and rgb at q=50 and ycbcr at q=85, each
+   byte-equal to the same CLI with --device cpu (coeffs to ycbcr's CPU
+   bytes), the rgb intake without --stream too, each with its launch
+   counts (B1 and B2, or B3 and B2) and its --metrics split into decode_s
+   and encode_s (a second run, timed); a --workdir run, cut back to its
+   first GOP and resumed, byte-equal to the rgb stream; on 30 frames of
+   400 x 600, mpeg_encode_procedure on the card (B4b and B2 launch; its
+   wall time), on the CPU and through the C ABI shim (ctypes, running the
+   CLI in a child process on the card): the stream and every .bit dump
+   equal; --mode compat --debug-checks (B4a and the checked B2) equal
+   too; a --profile trace, from the CLI in a process of its own, whose
+   spans name the vlc_fused4 and pack_fused4 launches and which holds
+   B1's and B2's kernels.
 
 The line before the last is a JSON summary of the kernels (time, twin
 time, least time the card could take and what sets it, the time of one
@@ -132,11 +151,17 @@ line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import hashlib
+import io
 import itertools
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -147,6 +172,9 @@ QUALITY = 50
 HQ_QUALITY = 85
 COMPAT_QUALITY = 12
 COMPAT_COPIES = 16  # 480 frames of 400 x 600
+JPEGS = ROOT / "tests" / "data" / "torch_jpegs"
+HD_FRAMES = 40      # phase 23: 1080p JPEGs in the CLI's folder
+ENTRY_COMPAT_FRAMES = 30
 
 # The least time the card could take for a kernel's work: the
 # larger of the bytes a function must move over the H100's 3.35 TB/s and
@@ -360,6 +388,184 @@ def _check_equal(name: str, got: bytes, want: bytes) -> None:
         raise AssertionError(f"{name} differs from the CPU path")
 
 
+def _jpeg_folder(folder: Path, names, n: int) -> Path:
+    """A folder of n copies of the fixture JPEGs `names`, in turn."""
+    folder.mkdir()
+    for i in range(n):
+        shutil.copy(JPEGS / names[i % len(names)], folder / f"img_{i:03d}.jpg")
+    return folder
+
+
+def _cli(argv) -> dict:
+    """Run the port's CLI in this process; its --metrics report, if asked."""
+    from ec504_imageencoder_tpu_torch import cli
+
+    err = io.StringIO()
+    with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(err):
+        rc = cli.main([str(a) for a in argv])
+    if rc != 0:
+        raise AssertionError(f"cli {argv} returned {rc}")
+    text = "\n" + err.getvalue()
+    return json.loads(text[text.rindex("\n{\n") + 1:]) if "--metrics" in argv else {}
+
+
+def _dumps(folder: Path) -> list:
+    return [hashlib.md5((folder / f"image_{i + 1}.bit").read_bytes()).hexdigest()
+            for i in range(len(list(folder.glob("image_*.bit"))))]
+
+
+def _entry_points(work: Path, tag: str, reset_launches, read_launches) -> None:
+    """Phase 23: the entry points on the card against the CPU."""
+    from ec504_imageencoder_tpu_torch import mpeg_encode_procedure
+    from ec504_imageencoder_tpu_torch.io import _native
+    from ec504_imageencoder_tpu_torch.io import jpeg as jpeg_io
+
+    # the child processes (the C ABI shim's CLI, --profile) import this tree
+    os.environ["EC504_PYTHON"] = sys.executable
+    os.environ["PYTHONPATH"] = os.pathsep.join(filter(None, (str(ROOT),
+                                                             os.environ.get("PYTHONPATH"))))
+    hd = _jpeg_folder(work / "hd", sorted(p.name for p in JPEGS.glob("hd_*.jpg")), HD_FRAMES)
+    paths = jpeg_io.scan_folder(str(hd))
+    geom = jpeg_io.probe_jpeg(paths[0])
+    print(f"JPEG folder: {len(paths)} x {geom['width']}x{geom['height']} 4:2:0 "
+          f"({sum(os.path.getsize(p) for p in paths) / 1e6:.1f} MB)")
+    for label, fn in (("RGB (load_folder)", lambda: jpeg_io.load_folder(str(hd))),
+                      ("planes", lambda: jpeg_io.decode_planes_batch(paths, geom)),
+                      ("coefficients", lambda: jpeg_io.decode_coeffs_batch(paths, geom))):
+        fn()
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t0)
+        print(f"native decoder, {label}: {len(paths) / min(ts):.2f} frames/s "
+              f"(best of 3: {1e3 * min(ts):.1f} ms for {len(paths)}; "
+              f"{os.cpu_count()} host cores) {tag}")
+
+    # correct mode: the card against the CPU, byte for byte
+    stream = ["--stream", "--batch", 16, "--metrics"]
+    routes = (  # label, flags, kernels that must launch, CPU bytes it must equal
+        ("ycbcr q=50", ["--intake", "ycbcr", *stream], ("vlc_fused4", "pack_fused4"),
+         "ycbcr q=50"),
+        ("coeffs q=50", ["--intake", "coeffs", *stream], ("vlc_fused4", "pack_fused4"),
+         "ycbcr q=50"),
+        ("rgb q=50", ["--intake", "rgb", *stream], ("vlc_fused4", "pack_fused4"), "rgb q=50"),
+        ("ycbcr q=85", ["--intake", "ycbcr", "-q", 85, *stream], ("vlc_levels4", "pack_fused4"),
+         "ycbcr q=85"),
+        ("rgb q=50, whole folder decoded first", ["--batch", 16, "--metrics"],
+         ("vlc_fused4", "pack_fused4"), "rgb q=50"),
+    )
+    cpu = {}
+    t0 = time.perf_counter()
+    for label, flags, _, _ in routes[:4]:
+        if label != "coeffs q=50":
+            _cli([hd, "-o", work / "cpu.mpeg", "--device", "cpu", *flags])
+            cpu[label] = (work / "cpu.mpeg").read_bytes()
+    print(f"CPU path CLI, {len(cpu)} configurations x {HD_FRAMES} frames: "
+          f"{time.perf_counter() - t0:.2f} s on the host")
+    card = {}
+    for label, flags, must, want in routes:
+        reset_launches()
+        _cli([hd, "-o", work / "card.mpeg", *flags])
+        counts = {k: v for k, v in read_launches().items() if v}
+        print(f"CLI {label}: launches {counts}")
+        for name in must:
+            if not counts.get(name):
+                raise AssertionError(f"CLI {label} never launched {name}")
+        card[label] = (work / "card.mpeg").read_bytes()
+        _check_equal(f"CLI {label}, {HD_FRAMES} x 1080p on the card", card[label], cpu[want])
+        m = _cli([hd, "-o", work / "card.mpeg", *flags])  # timed: the second run
+        wall = m["decode_s"] + m["encode_s"]
+        print(f"CLI {label}: {HD_FRAMES / wall:.2f} frames/s end to end (decode_s "
+              f"{m['decode_s']:.4f}, encode_s {m['encode_s']:.4f}, encode_fps "
+              f"{m['encode_fps']:.2f}, n_devices {m.get('n_devices')}, "
+              f"{m['bytes_per_frame']:.0f} B a frame) {tag}")
+
+    # --workdir: a run, cut back to its first GOP, resumed
+    wd = work / "wd"
+    _cli([hd, "-o", work / "wd1.mpeg", "--workdir", wd, "--batch", 16])
+    manifest = json.loads((wd / "manifest.json").read_text())
+    n_gops = len(manifest["segments"])
+    manifest["segments"] = manifest["segments"][:1]
+    (wd / "manifest.json").write_text(json.dumps(manifest))
+    stamp = (wd / "seg_000000.m1vseg").stat().st_mtime_ns
+    reset_launches()
+    _cli([hd, "-o", work / "wd2.mpeg", "--workdir", wd, "--batch", 16])
+    resumed = read_launches()["vlc_fused4"]
+    _check_equal(f"--workdir run ({n_gops} GOPs)", (work / "wd1.mpeg").read_bytes(),
+                 card["rgb q=50"])
+    _check_equal("--workdir run resumed after GOP 0", (work / "wd2.mpeg").read_bytes(),
+                 card["rgb q=50"])
+    print(f"--workdir resume: B1 launched {resumed} times for GOPs 1..{n_gops - 1}")
+    if (wd / "seg_000000.m1vseg").stat().st_mtime_ns != stamp or not resumed:
+        raise AssertionError("the resume re-encoded GOP 0, or encoded nothing")
+
+    # compat: mpeg_encode_procedure on the card, on the CPU and through the shim
+    small = _jpeg_folder(work / "small", sorted(p.name for p in JPEGS.glob("frame_*.jpg")),
+                         ENTRY_COMPAT_FRAMES)
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = mpeg_encode_procedure(str(small), str(work / "bits_card"), str(work / "card.mpeg"), 12)
+    compat_s = time.perf_counter() - t0
+    _check_launches(f"mpeg_encode_procedure, {ENTRY_COMPAT_FRAMES} frames", read_launches(),
+                    ("vlc_compat_fused4", "pack_fused4"), ("vlc_compat_slots",))
+    t0 = time.perf_counter()
+    rc_cpu = mpeg_encode_procedure(str(small), str(work / "bits_cpu"), str(work / "cpu.mpeg"),
+                                   12, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    shim = _native.load("encoder_compat").mpeg_encode_procedure
+    shim.argtypes = [ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int]
+    shim.restype = ctypes.c_int
+    t0 = time.perf_counter()
+    rc_shim = shim(str(small).encode(), str(work / "bits_shim").encode(),
+                   str(work / "shim.mpeg").encode(), 12)
+    shim_s = time.perf_counter() - t0
+    if (rc, rc_cpu, rc_shim) != (0, 0, 0):
+        raise AssertionError(f"compat entry points returned {rc}, {rc_cpu}, {rc_shim}")
+    want = (work / "cpu.mpeg").read_bytes()
+    _check_equal(f"mpeg_encode_procedure, {ENTRY_COMPAT_FRAMES} x 400x600 on the card",
+                 (work / "card.mpeg").read_bytes(), want)
+    _check_equal("the C ABI shim (CLI in a child process on the card)",
+                 (work / "shim.mpeg").read_bytes(), want)
+    reset_launches()
+    _cli([small, "-o", work / "dbg.mpeg", "--mode", "compat", "--debug-checks",
+          "--bitstream-dir", work / "bits_dbg"])
+    _check_launches("CLI --mode compat --debug-checks", read_launches(),
+                    ("vlc_compat_slots", "pack_fused4_checked"), ("vlc_compat_fused4",))
+    _check_equal("CLI --mode compat --debug-checks", (work / "dbg.mpeg").read_bytes(), want)
+    md5s = [_dumps(work / d) for d in ("bits_card", "bits_cpu", "bits_shim", "bits_dbg")]
+    print(f".bit dumps: {len(md5s[1])} each, card, shim and debug-checks equal to the CPU's "
+          f"{md5s[0] == md5s[1] == md5s[2] == md5s[3]}")
+    if len(md5s[1]) != ENTRY_COMPAT_FRAMES or not md5s[0] == md5s[1] == md5s[2] == md5s[3]:
+        raise AssertionError("compat .bit dumps differ from the CPU path")
+    print(f"mpeg_encode_procedure, {ENTRY_COMPAT_FRAMES} x 400x600 q=12: {compat_s:.3f} s on "
+          f"the card ({ENTRY_COMPAT_FRAMES / compat_s:.2f} frames/s, decode included), "
+          f"{cpu_s:.3f} s on the CPU; through the C ABI shim {shim_s:.3f} s "
+          f"(a child process: interpreter start, imports, kernel loads) {tag}")
+
+    # --profile, as a user runs it (a process of its own): the trace names the
+    # kernel launches and holds the card's kernels
+    prof = work / "prof"
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "ec504_imageencoder_tpu_torch.cli",
+                    str(_jpeg_folder(work / "hd4", ["hd_0.jpg"], 4)), "-o", str(work / "p.mpeg"),
+                    "--stream", "--intake", "ycbcr", "--profile", str(prof)],
+                   check=True, cwd=ROOT, timeout=600, stdout=subprocess.DEVNULL)
+    (trace,) = prof.glob("*.json")
+    events = json.loads(trace.read_text())["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    kernels = sorted({e["name"].split("<")[0].removeprefix("void ") for e in events
+                      if e.get("cat") == "kernel"})
+    print(f"--profile (CLI in a child process, {time.perf_counter() - t0:.1f} s): trace "
+          f"{trace.stat().st_size} B, {len(events)} events; spans vlc_fused4_launch "
+          f"{'vlc_fused4_launch' in names}, pack_fused4_launch {'pack_fused4_launch' in names}; "
+          f"card kernels {kernels}")
+    if not {"vlc_fused4_launch", "pack_fused4_launch"} <= names or not any(
+            "vlc_slots_kernel" in k for k in kernels) or not any(
+            "pack_tiles_kernel" in k for k in kernels):
+        raise AssertionError("the --profile trace lacks the kernel launches")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -369,6 +575,7 @@ def main() -> int:
               "needs one CUDA card", file=sys.stderr)
         return 2
 
+    from ec504_imageencoder_tpu_torch.io import _native
     from ec504_imageencoder_tpu_torch.models import mpeg1
     from ec504_imageencoder_tpu_torch.models.encoder import encode_compat
     from ec504_imageencoder_tpu_torch.models.mpeg1 import TorchMPEG1IntraEncoder, plane_levels
@@ -444,6 +651,13 @@ def main() -> int:
             if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
     print(f"cold kernel build (parallel) + load: {cold_build_s:.2f} s {tag}")
+    t0 = time.perf_counter()
+    _native.build()
+    host_build_s = time.perf_counter() - t0
+    for name, (secs, _) in sorted(_native.build_info.items()):
+        print(f"build {name}: g++ done after {secs:.2f} s")
+    print(f"cold host library build (g++, parallel): {host_build_s:.2f} s "
+          f"({len(_native.build_info)} built) {tag}")
 
     rng = np.random.default_rng(SEED)
     frames = _frames(np, rng, BATCH)
@@ -1291,6 +1505,13 @@ def main() -> int:
         fps, ms = _frames_per_s(torch, fn, BATCH, 3)
         print(f"{label} 16x1080p q={QUALITY}: {fps:.2f} frames/s ({ms:.2f} ms per batch) {tag}")
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {tag}")
+
+    # ---- 23. the entry points: JPEG folders, the CLI, the API, the C ABI shim
+    entry_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        _entry_points(entry_dir, tag, reset_launches, read_launches)
+    finally:
+        shutil.rmtree(entry_dir, ignore_errors=True)
 
     src = "ec504_imageencoder_tpu_torch/csrc/"
     rows = [

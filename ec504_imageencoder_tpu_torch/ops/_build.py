@@ -1,11 +1,18 @@
 """Build the CUDA kernels with nvcc at first use and bind them with ctypes.
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled for Hopper
-(`sm_90a`) into `build/lib<name>_<hash>.so` inside this package (listed
-in `.gitignore`).  The hash covers the source, every header under
-`csrc/` (the kernels share device code through them) and the flags, so
-an edited source or header is rebuilt.  Nothing is built or loaded when
-this module is imported: only `load()` runs nvcc.
+(`sm_90a`) into `lib<name>_<hash>.so` in `build_dir()`: `build/` inside
+this package (listed in `.gitignore`), or, where the package directory
+is read-only (an installed copy), `$XDG_CACHE_HOME` (else `~/.cache`)
+`/ec504_imageencoder_tpu_torch/build`.  The hash covers the source, every
+header under `csrc/` (the kernels share device code through them) and the
+flags, so an edited source or header is rebuilt.  Nothing is built or
+loaded when this module is imported: only `load()` runs nvcc.  The host
+libraries of `io/_native.py` (g++) share the directory and `compile_all`.
+
+While a profiler records, every `*_launch` entry point is called inside a
+span of its own name (`utils.profiling.stage_scope`), so a trace names each
+kernel launch.
 """
 
 from __future__ import annotations
@@ -15,12 +22,17 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
+from torch.autograd import _profiler_enabled
+
+from ec504_imageencoder_tpu_torch.utils.profiling import stage_scope
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "build"
+BUILD_DIR = _PKG / "build"  # the default; see build_dir()
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -56,9 +68,60 @@ def source_digest(src: Path, csrc: Path = CSRC) -> str:
     return h.hexdigest()
 
 
+def _writable(path: Path) -> bool:
+    """True when a file can be created in `path` (made if missing)."""
+    try:
+        path.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryFile(dir=path):
+            pass
+    except OSError:
+        return False
+    return True
+
+
+def build_dir() -> Path:
+    """Where the libraries are built and found: `BUILD_DIR` while the
+    package directory is writable, else the user cache directory."""
+    if _writable(BUILD_DIR):
+        return BUILD_DIR
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    out = Path(cache) / "ec504_imageencoder_tpu_torch" / "build"
+    out.mkdir(parents=True, exist_ok=True)
+    return out
+
+
 def _library(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    return BUILD_DIR / f"lib{name}_{source_digest(src)[:16]}.so"
+    return build_dir() / f"lib{name}_{source_digest(src)[:16]}.so"
+
+
+def compile_all(jobs, tool: str, log: dict | None = None) -> None:
+    """Run each job (name, library path, compiler argv without its output)
+    whose library is missing, one process per job, all started together;
+    each writes a temporary name that `os.replace` moves into place, so a
+    concurrent loader sees the whole library or none.  Raise if any
+    fails.  `log[name]` gets (seconds from the start until that job
+    finished, its compiler output)."""
+    procs = []
+    t0 = time.perf_counter()
+    for name, so, argv in jobs:
+        if so.exists():
+            continue
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        procs.append((name, so, tmp, subprocess.Popen(
+            [*argv, "-o", str(tmp)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)))
+    failed = []
+    for name, so, tmp, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{tool} failed on {name} (exit {proc.returncode}):\n{out}{err}")
+            continue
+        os.replace(tmp, so)
+        if log is not None:
+            log[name] = (time.perf_counter() - t0, err + out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def build(names) -> None:
@@ -66,28 +129,22 @@ def build(names) -> None:
     one nvcc process per source, all started together; raise if any
     fails."""
     todo = [(n, _library(n)) for n in names]
-    todo = [(n, so) for n, so in todo if not so.exists()]
-    if not todo:
+    if all(so.exists() for _, so in todo):
         return
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    t0 = time.perf_counter()
-    procs = []
-    for name, so in todo:
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs.append((name, so, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-    failed = []
-    for name, so, tmp, proc in procs:
-        out, err = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{out}{err}")
-            continue
-        os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
-        build_info[name] = (time.perf_counter() - t0, err + out)
-    if failed:
-        raise RuntimeError("\n".join(failed))
+    compile_all([(n, so, [nvcc, *NVCC_FLAGS, str(CSRC / f"{n}.cu")]) for n, so in todo],
+                "nvcc", build_info)
+
+
+def _scoped(fn, name: str):
+    """fn inside a profiler span `name` while a profiler records; outside
+    one, a bare call (a span costs ~12 us of host time a launch)."""
+    def launch(*args):
+        if not _profiler_enabled():
+            return fn(*args)
+        with stage_scope(name):
+            return fn(*args)
+    return launch
 
 
 def load(name: str, argtypes: dict[str, list]) -> ctypes.CDLL:
@@ -103,6 +160,8 @@ def load(name: str, argtypes: dict[str, list]) -> ctypes.CDLL:
         f = getattr(lib, fn)
         f.argtypes = types
         f.restype = ctypes.c_int
+        if fn.endswith("_launch"):
+            setattr(lib, fn, _scoped(f, fn))
     strerror = getattr(lib, f"{name}_strerror")
     strerror.argtypes = [ctypes.c_int]
     strerror.restype = ctypes.c_char_p

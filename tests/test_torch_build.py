@@ -35,3 +35,18 @@ def test_every_kernel_source_is_keyed():
     """Each source's key differs from the others' (the source is in it)."""
     keys = {_build.source_digest(p) for p in _build.CSRC.glob("*.cu")}
     assert len(keys) == len(list(_build.CSRC.glob("*.cu"))) >= 4
+
+
+def test_launch_spans_only_under_a_profiler():
+    """`load` wraps every `*_launch` entry point: inside a profiler the
+    call is a span of its name (what `--profile` traces show), outside one
+    a bare call."""
+    from torch.profiler import profile
+
+    calls = []
+    launch = _build._scoped(lambda *a: calls.append(a) or 0, "vlc_fused4_launch")
+    assert launch(1, 2) == 0
+    with profile() as prof:
+        assert launch(3) == 0
+    assert calls == [(1, 2), (3,)]
+    assert [e.name for e in prof.events()].count("vlc_fused4_launch") == 1

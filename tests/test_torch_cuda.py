@@ -9,12 +9,18 @@ JAX):
 
 The encoders on the card are held against the JAX package's numpy
 reference (`backend="numpy"`, host code that imports no JAX) and against
-the same encoders on the CPU (the twins).
+the same encoders on the CPU (the twins); the CLI and the C ABI shim on
+the card against the same entry points on the CPU.
 
 Tolerance: exact (0) everywhere: the kernels are integer arithmetic, and
 the f32 DCT in front of B3 is separate IEEE f32 multiplies and adds in the
 reference's numpy order, the same bits on the card as on the host.
 """
+
+import ctypes
+import shutil
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -22,6 +28,8 @@ import torch
 
 from ec504_imageencoder_tpu.models.encoder import encode_compat as encode_compat_reference
 from ec504_imageencoder_tpu.models.mpeg1 import MPEG1IntraEncoder
+from ec504_imageencoder_tpu_torch import cli, mpeg_encode_procedure
+from ec504_imageencoder_tpu_torch.io import _native
 from ec504_imageencoder_tpu_torch.models import mpeg1
 from ec504_imageencoder_tpu_torch.models.encoder import encode_compat
 from ec504_imageencoder_tpu_torch.models.mpeg1 import TorchMPEG1IntraEncoder, plane_levels
@@ -686,3 +694,67 @@ def test_edge_pad_on_card(cuda, shape, h, w):
     want = np.pad(x, ((0, 0), (0, h - shape[1]), (0, w - shape[2])), mode="edge")
     got = mpeg1.edge_pad(torch.from_numpy(x).to(cuda), h, w)
     assert got.is_cuda and np.array_equal(got.cpu().numpy(), want)
+
+
+# ---- the entry points on the card: the CLI and the C ABI shim ---------------
+
+JPEGS = Path(__file__).resolve().parent / "data" / "torch_jpegs"
+
+
+def _jpeg_folder(folder: Path, n: int) -> Path:
+    """n copies of the committed 400 x 600 fixture JPEGs, in turn."""
+    folder.mkdir()
+    for i in range(n):
+        shutil.copy(JPEGS / f"frame_{i % 3}.jpg", folder / f"img_{i:02d}.jpg")
+    return folder
+
+
+def _outputs(d: Path):
+    bits = d / "bits"
+    return (d / "out.mpeg").read_bytes(), (
+        {p.name: p.read_bytes() for p in sorted(bits.iterdir())} if bits.exists() else {})
+
+
+@pytest.mark.parametrize("flags", [
+    [], ["--stream", "--intake", "ycbcr"], ["--stream", "--intake", "coeffs", "--batch", "2"],
+    ["--stream", "--intake", "rgb"], ["-q", "85", "--stream"], ["--fuse", "8"],
+    ["--pack", "fused"], ["--debug-checks", "-q", "85"], ["--container", "ps", "--gop", "2"],
+    ["--bitstream-dir", "{bits}"], ["--mode", "compat", "--bitstream-dir", "{bits}"],
+    ["--mode", "compat", "--debug-checks"]], ids=lambda f: " ".join(f) or "default")
+def test_cli_on_card_equals_cpu(cuda, tmp_path, flags, capsys):
+    """The CLI on its default device (the card) and with --device cpu."""
+    folder = _jpeg_folder(tmp_path / "imgs", 5)
+    outs = []
+    for extra in ([], ["--device", "cpu"]):
+        d = tmp_path / ("cpu" if extra else "card")
+        d.mkdir()
+        argv = [str(folder), "-o", str(d / "out.mpeg"),
+                *(f.format(bits=d / "bits") for f in flags), *extra]
+        assert cli.main(argv) == 0
+        outs.append(_outputs(d))
+    assert outs[0] == outs[1]
+
+
+def test_capi_shim_on_card_equals_cpu(cuda, tmp_path, monkeypatch):
+    """The C ABI shim (a child process running the CLI on the card) and
+    mpeg_encode_procedure on the card: the CPU's stream and dumps."""
+    folder = _jpeg_folder(tmp_path / "imgs", 6)
+    shim = _native.load("encoder_compat").mpeg_encode_procedure
+    shim.argtypes = [ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int]
+    shim.restype = ctypes.c_int
+    monkeypatch.setenv("EC504_PYTHON", sys.executable)
+    monkeypatch.setenv("PYTHONPATH", str(Path(__file__).resolve().parent.parent))
+    outs = []
+    for name, run in (
+        ("shim", lambda d: shim(str(folder).encode(), str(d / "bits").encode(),
+                                str(d / "out.mpeg").encode(), 12)),
+        ("card", lambda d: mpeg_encode_procedure(str(folder), str(d / "bits"),
+                                                 str(d / "out.mpeg"), 12)),
+        ("cpu", lambda d: mpeg_encode_procedure(str(folder), str(d / "bits"),
+                                                str(d / "out.mpeg"), 12, device="cpu")),
+    ):
+        d = tmp_path / name
+        d.mkdir()
+        assert run(d) == 0
+        outs.append(_outputs(d))
+    assert outs[0] == outs[1] == outs[2] and len(outs[0][1]) == 6

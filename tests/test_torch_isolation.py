@@ -1,5 +1,6 @@
-"""The port never imports JAX nor the JAX package, and chip_smoke.py has
-no CPU path.
+"""The port never imports JAX nor the JAX package (nor loads a library of
+it: its JPEG decoder and C shim are its own g++ builds), and chip_smoke.py
+has no CPU path.
 
 The runs are subprocesses: tests/conftest.py imports JAX into this one.
 """
@@ -52,6 +53,29 @@ mpeg, dumps = c.encode_compat(np.zeros((2, 144, 96, 3), np.uint8), 12, device="c
 assert mpeg[:4] == bytes([0, 0, 1, 0xBA]) and len(dumps) == 2
 mpeg2, _ = c.encode_compat(np.zeros((2, 144, 96, 3), np.uint8), 12, device="cpu", debug_checks=True)
 assert mpeg2 == mpeg
+import os
+import shutil
+import tempfile
+from ec504_imageencoder_tpu_torch import mpeg_encode_procedure
+from ec504_imageencoder_tpu_torch import cli
+from ec504_imageencoder_tpu_torch.io import jpeg
+tmp = tempfile.mkdtemp()
+os.mkdir(os.path.join(tmp, "imgs"))
+for k in range(3):
+    shutil.copy(f"tests/data/torch_jpegs/frame_{k}.jpg", os.path.join(tmp, "imgs"))
+assert mpeg_encode_procedure(os.path.join(tmp, "imgs"), os.path.join(tmp, "bits"),
+                             os.path.join(tmp, "out.mpeg"), 12, device="cpu") == 0
+assert len(os.listdir(os.path.join(tmp, "bits"))) == 3
+import contextlib
+import io
+with contextlib.redirect_stdout(io.StringIO()) as said:
+    assert cli.main([os.path.join(tmp, "imgs"), "-o", os.path.join(tmp, "c.mpeg"), "--device",
+                     "cpu", "--stream", "--intake", "coeffs", "--container", "ps"]) == 0
+assert said.getvalue().startswith("wrote ")
+shutil.rmtree(tmp)
+assert "/ec504_imageencoder_tpu_torch/" in jpeg._load_native()._name
+maps = open("/proc/self/maps").read()
+assert "/ec504_imageencoder_tpu/" not in maps, "a file of the JAX package is mapped"
 loaded = [k for k in sys.modules if sys.modules[k] is not None]
 assert not any(k == "jax" or k.startswith(("jax.", "jaxlib")) for k in loaded)
 assert not any(k == "ec504_imageencoder_tpu" or k.startswith("ec504_imageencoder_tpu.")

@@ -347,7 +347,7 @@ def main() -> int:
     tag = f"[{cs._gpu_line()}]"
     print(tag)
     dev = torch.device("cuda", 0)
-    out_dir = _build.BUILD_DIR / "compat_variants"
+    out_dir = _build.build_dir() / "compat_variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     committed = (_build.CSRC / "vlc_compat.cu").read_text()
     sources = [(_label(c), _with_constants(committed, c)) for c in CONSTANTS]

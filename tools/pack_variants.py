@@ -100,7 +100,7 @@ def main() -> int:
     tag = f"[{cs._gpu_line()}]"
     print(tag)
     dev = torch.device("cuda", 0)
-    out_dir = _build.BUILD_DIR / "pack_variants"
+    out_dir = _build.build_dir() / "pack_variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     src = (_build.CSRC / "pack_fused4.cu").read_text()
     variants = [(consts, _variant_source(src, consts)) for consts in VARIANTS]
