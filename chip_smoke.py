@@ -141,12 +141,45 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    equal; --mode compat --debug-checks (B4a and the checked B2) equal
    too; a --profile trace, from the CLI in a process of its own, whose
    spans name the vlc_fused4 and pack_fused4 launches and which holds
-   B1's and B2's kernels.
+   B1's and B2's kernels; a --container ps run on 4 copies of one 1080p
+   JPEG, byte-equal to --device cpu (phase 24 decodes it);
+24. (after phase 25) the port's decoder (models/decoder.py, host
+   numpy), in worker processes while phase 26 runs: decode_stream of the 16 x 1080p
+   rgb-intake streams at q=50 and q=85 (frame count, shapes, per-frame
+   PSNR against the source frames, studio range both sides, gated on the
+   floors that tools/decode_psnr_floor.py derives on the CPU, and the
+   decoder's frames/s on the host), of phase 23's program stream, and of
+   the compat golden stream (which no ISO decoder reads through: the
+   reference's decoder stops at bit 4696 with CorruptStreamError, and the
+   port's must stop there too); decode_es (the scalar oracle) against
+   decode_stream on a small card-made stream; mpeg-decode-torch (the
+   module, in a process of its own) on phase 23's program stream with -o
+   as PPM and --psnr-ref on its JPEG folder, and once with the default
+   format (PNG, or PPM with the reference's message where PIL is missing);
+25. (before phase 24, so that its frames/s have the host to themselves)
+   the sharded encoder (parallel/sharded_encoder.py) on meshes (1, 1),
+   (1, 2), (1, 4), (2, 1) and (2, 2) of cuda:0: the 16 x 1080p frames
+   (encode) and planes (encode_from_planes) at q=50 with fuse 4 and 8 and
+   at q=85, byte-equal to the unsharded card bytes of phases 4, 8 and 17,
+   each with one emission and one pack launch per shard; debug_checks and
+   a forced regrow on (2, 2); (1, 3) raises the reference's ValueError (68
+   MB rows); each mesh's frames/s between two readings of the unsharded
+   rate; with two cards a (2, 1) mesh over both, run while the other card
+   is current (hazard C-h5), else the multi-card claim is printed as
+   unverified;
+26. two processes on the one card: encode_multihost
+   (parallel/distributed.py) over gloo on 127.0.0.1, both on cuda:0, 6
+   1080p frames in GOPs of one, the stitched stream byte-equal to one
+   process's encode, and its wall time; then the fault drill of
+   tests/test_runtime.py: rank 1 dies after its first GOP, rank 0 banks
+   its share, the job restarts and re-encodes only GOPs 3 and 5, and the
+   stream is the same.
 
-The line before the last is a JSON summary of the kernels (time, twin
-time, least time the card could take and what sets it, the time of one
-PyTorch call computing the same function where there is one); the last
-line is {"ok": true, "device": {...}}.
+The whole run's time is printed before the kernels line.  The line
+before the last is a JSON summary of the kernels (time, twin time, least
+time the card could take and what sets it, the time of one PyTorch call
+computing the same function where there is one); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -157,8 +190,11 @@ import hashlib
 import io
 import itertools
 import json
+import multiprocessing
 import os
+import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -382,10 +418,10 @@ def _check_launches(path: str, counts: dict, must_run, must_not_run=()) -> None:
             raise AssertionError(f"{path} launched {name}")
 
 
-def _check_equal(name: str, got: bytes, want: bytes) -> None:
-    print(f"{name}: {len(got)} B, CPU path {len(want)} B, equal {got == want}")
+def _check_equal(name: str, got: bytes, want: bytes, what: str = "the CPU path") -> None:
+    print(f"{name}: {len(got)} B, {what} {len(want)} B, equal {got == want}")
     if got != want:
-        raise AssertionError(f"{name} differs from the CPU path")
+        raise AssertionError(f"{name} differs from {what}")
 
 
 def _jpeg_folder(folder: Path, names, n: int) -> Path:
@@ -414,8 +450,9 @@ def _dumps(folder: Path) -> list:
             for i in range(len(list(folder.glob("image_*.bit"))))]
 
 
-def _entry_points(work: Path, tag: str, reset_launches, read_launches) -> None:
-    """Phase 23: the entry points on the card against the CPU."""
+def _entry_points(work: Path, tag: str, reset_launches, read_launches):
+    """Phase 23: the entry points on the card against the CPU.  Returns the
+    --container ps stream and its JPEG folder, for phase 24."""
     from ec504_imageencoder_tpu_torch import mpeg_encode_procedure
     from ec504_imageencoder_tpu_torch.io import _native
     from ec504_imageencoder_tpu_torch.io import jpeg as jpeg_io
@@ -543,12 +580,23 @@ def _entry_points(work: Path, tag: str, reset_launches, read_launches) -> None:
           f"{cpu_s:.3f} s on the CPU; through the C ABI shim {shim_s:.3f} s "
           f"(a child process: interpreter start, imports, kernel loads) {tag}")
 
+    # --container ps on 4 copies of one 1080p JPEG (rgb intake: studio range,
+    # what phase 24's PSNR compares), on the card and on the CPU
+    hd4 = _jpeg_folder(work / "hd4", ["hd_0.jpg"], 4)
+    ps = ["--stream", "--intake", "rgb", "--container", "ps"]
+    reset_launches()
+    _cli([hd4, "-o", work / "ps.mpeg", *ps])
+    _check_launches("CLI --container ps", read_launches(), ("vlc_fused4", "pack_fused4"))
+    _cli([hd4, "-o", work / "ps_cpu.mpeg", "--device", "cpu", *ps])
+    _check_equal("CLI --container ps, 4 x 1080p", (work / "ps.mpeg").read_bytes(),
+                 (work / "ps_cpu.mpeg").read_bytes())
+
     # --profile, as a user runs it (a process of its own): the trace names the
     # kernel launches and holds the card's kernels
     prof = work / "prof"
     t0 = time.perf_counter()
     subprocess.run([sys.executable, "-m", "ec504_imageencoder_tpu_torch.cli",
-                    str(_jpeg_folder(work / "hd4", ["hd_0.jpg"], 4)), "-o", str(work / "p.mpeg"),
+                    str(hd4), "-o", str(work / "p.mpeg"),
                     "--stream", "--intake", "ycbcr", "--profile", str(prof)],
                    check=True, cwd=ROOT, timeout=600, stdout=subprocess.DEVNULL)
     (trace,) = prof.glob("*.json")
@@ -564,9 +612,117 @@ def _entry_points(work: Path, tag: str, reset_launches, read_launches) -> None:
             "vlc_slots_kernel" in k for k in kernels) or not any(
             "pack_tiles_kernel" in k for k in kernels):
         raise AssertionError("the --profile trace lacks the kernel launches")
+    return work / "ps.mpeg", hd4
+
+
+# Phase 24's decoded-PSNR floors in dB, (mean, least frame): the port's CPU
+# path decoded by the port's decoder, studio range both sides, for the same
+# frames (`python3 tools/decode_psnr_floor.py`: 32.26403013230161 /
+# 30.522338088600755 at q=50, 38.02445871293405 / 36.280377150731255 at
+# q=85, 35.05529734460338 for 4 x hd_0.jpg at q=50), cut to 0.01 dB.  The
+# card's bytes equal the CPU path's, so its decodes must reach them.
+PSNR_FLOORS = {f"q={QUALITY}": (32.26, 30.52), f"q={HQ_QUALITY}": (38.02, 36.28),
+               "ps": (35.05, 35.05)}
+# The compat golden stream is the C encoder's, bugs included (SURVEY.md
+# §2.9): the JAX package's decoder stops in it with this error, on the CPU.
+GOLDEN_DECODE_ERROR = ("CorruptStreamError", "invalid AC prefix at bit 4696")
+MULTIHOST_FRAMES = 6  # phase 26: 1080p frames, GOPs of one
+
+
+def _decode_job(path: str, color_range: str, ref_path: str | None) -> dict:
+    """Phase 24, in a worker process: decode_stream of the stream at path;
+    its frame count, shapes, per-frame PSNR against the frames saved at
+    ref_path, and seconds; or the decoder's error."""
+    import numpy as np
+
+    from ec504_imageencoder_tpu_torch.models.decoder import decode_stream, psnr
+
+    data = Path(path).read_bytes()
+    t0 = time.perf_counter()
+    try:
+        dec = decode_stream(data, color_range)
+    except ValueError as e:
+        return {"error": (type(e).__name__, str(e)), "s": time.perf_counter() - t0}
+    out = {"frames": len(dec), "shapes": sorted({d.shape for d in dec}),
+           "s": time.perf_counter() - t0}
+    if ref_path:
+        ref = np.load(ref_path)
+        out["psnr"] = [float(psnr(r, d)) for r, d in zip(ref, dec)]
+    return out
+
+
+# Phase 26's child: rank argv[1] of argv[2] processes, encode_multihost over
+# gloo on the card; EC504_DRILL=die runs the fault drill's first half (rank 1
+# dies after its first GOP, rank 0 banks its share and leaves before the
+# barrier).  Each process logs the frame ranges it encoded.
+_MULTIHOST_CHILD = r"""
+import os, sys, time
+import numpy as np
+import torch.distributed as dist
+from ec504_imageencoder_tpu_torch.models.mpeg1 import TorchMPEG1IntraEncoder
+from ec504_imageencoder_tpu_torch.parallel.distributed import encode_multihost, init_distributed
+from ec504_imageencoder_tpu_torch.runtime.checkpoint import CheckpointedEncode
+
+pid, nproc, port = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+workdir, out, log, frames_path, quality = sys.argv[4:9]
+assert init_distributed(f"127.0.0.1:{port}", nproc, pid, timeout=120) == (pid, nproc)
+frames = np.load(frames_path)
+enc = TorchMPEG1IntraEncoder(quality=int(quality), gop_size=1, device="cuda:0")
+calls = []
+
+def source(s, e):
+    if os.environ.get("EC504_DRILL") == "die" and pid == 1 and calls:
+        os._exit(42)  # a hard kill mid-encode: after GOP 1, before GOP 3
+    calls.append((s, e))
+    with open(log, "a") as f:
+        f.write(f"{pid} {s} {e}\n")
+    return frames[s:e]
+
+if os.environ.get("EC504_DRILL") and pid == 0:
+    sess = CheckpointedEncode(workdir, enc, len(frames))
+    sess.manifest_path = os.path.join(workdir, "manifest_0.json")
+    sess.segments = {}
+    sess._load_manifest()
+    for g in range(sess.n_gops()):
+        if g % nproc == 0 and g not in sess.segments:
+            s, e = sess.gop_frame_range(g)
+            sess.encode_gop(g, source(s, e))
+    deadline = time.time() + 120
+    while not os.path.exists(os.path.join(workdir, "seg_000001.m1vseg")):
+        if time.time() > deadline:
+            os._exit(3)
+        time.sleep(0.05)
+    os._exit(0)  # preempted before the barrier: no stitch
+n = encode_multihost(source, len(frames), workdir, out, encoder=enc)
+print("RESULT", pid, n, len(calls))
+dist.destroy_process_group()
+"""
+
+
+def _two_processes(script: Path, args, env=None, timeout: float = 300):
+    """Run script as ranks 0 and 1 of 2 on a fresh gloo port: (return codes,
+    (stdout, stderr) each, wall seconds).  Both are killed on a timeout."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    full_env = dict(os.environ, PYTHONPATH=str(ROOT), **(env or {}))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(script), str(pid), "2", str(port),
+                               *map(str, args)], cwd=ROOT, env=full_env, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for pid in range(2)]
+    try:
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [p.returncode for p in procs], outs, time.perf_counter() - t0
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import numpy as np
     import torch
 
@@ -1508,10 +1664,249 @@ def main() -> int:
 
     # ---- 23. the entry points: JPEG folders, the CLI, the API, the C ABI shim
     entry_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    pool = None
+    clis = []
     try:
-        _entry_points(entry_dir, tag, reset_launches, read_launches)
+        ps_path, ps_jpegs = _entry_points(entry_dir, tag, reset_launches, read_launches)
+
+        # ---- 25. the sharded encoder on the one card: before phase 24's decodes
+        # start, so that its frames/s have the host to themselves
+        from ec504_imageencoder_tpu_torch.parallel.mesh import make_mesh
+        from ec504_imageencoder_tpu_torch.parallel.sharded_encoder import (
+            ShardedTorchMPEG1Encoder,
+        )
+
+        def sharded(shape, **kw):
+            return ShardedTorchMPEG1Encoder(mesh=make_mesh(*shape, [dev] * (shape[0] * shape[1])),
+                                            **kw)
+
+        def shard_run(label, shape, n_shards, fn, want, must):
+            reset_launches()
+            got = fn()
+            counts = read_launches()
+            print(f"mesh {shape} {label}: {len(got)} B, unsharded card bytes {len(want)} B, "
+                  f"equal {got == want}, launches {({k: counts[k] for k in must})}")
+            if got != want:
+                raise AssertionError(f"mesh {shape} {label} differs from the unsharded bytes")
+            if any(counts[k] != n_shards for k in must):
+                raise AssertionError(f"mesh {shape} {label}: not {n_shards} launches of {must}")
+
+        sh_runs = (  # label, keywords, intake, unsharded card bytes, kernels
+            (f"encode q={QUALITY}", {"quality": QUALITY}, "rgb", es_rgb,
+             ("vlc_fused4", "pack_fused4")),
+            (f"encode_from_planes q={QUALITY}", {"quality": QUALITY}, "planes", es_planes,
+             ("vlc_fused4", "pack_fused4")),
+            (f"encode q={QUALITY} fuse=8", {"quality": QUALITY, "fuse": 8}, "rgb", f8_rgb,
+             fuse8_kernels),
+            (f"encode_from_planes q={QUALITY} fuse=8", {"quality": QUALITY, "fuse": 8}, "planes",
+             f8_planes, fuse8_kernels),
+            (f"encode q={HQ_QUALITY}", {"quality": HQ_QUALITY}, "rgb", hq_rgb,
+             ("vlc_levels4", "pack_fused4")),
+            (f"encode_from_planes q={HQ_QUALITY}", {"quality": HQ_QUALITY}, "planes", hq_planes,
+             ("vlc_levels4", "pack_fused4")),
+        )
+        def rate_pair(e):
+            return [_frames_per_s(torch, lambda: e.encode(frames), BATCH, 5)[0],
+                    _frames_per_s(torch, lambda: e.encode_from_planes(jy, jcb, jcr), BATCH, 5)[0]]
+
+        rates = {"unsharded, before the meshes": rate_pair(enc)}
+        t_sh = time.perf_counter()
+        for shape in ((1, 1), (1, 2), (1, 4), (2, 1), (2, 2)):
+            n_shards = shape[0] * shape[1]
+            for label, kw, intake, want, must in sh_runs:
+                enc_s = sharded(shape, **kw)
+                run = ((lambda e=enc_s: e.encode(frames)) if intake == "rgb" else
+                       (lambda e=enc_s: e.encode_from_planes(jy, jcb, jcr)))
+                shard_run(label, shape, n_shards, run, want, must)
+            rates[f"mesh {shape}"] = rate_pair(sharded(shape, quality=QUALITY))
+        rates["unsharded, after the meshes"] = rate_pair(enc)
+        dbg = sharded((2, 2), quality=QUALITY, debug_checks=True)
+        shard_run(f"encode q={QUALITY} debug_checks", (2, 2), 4, lambda: dbg.encode(frames),
+                  es_rgb, ("vlc_raw", "pack_fused4_checked"))
+        grow = sharded((2, 2), quality=QUALITY, max_slice_bytes=2560)
+        shard_run(f"regrow encode q={QUALITY} from 2560 B (two runs a shard)", (2, 2), 8,
+                  lambda: grow.encode(regrow_frames), es_regrow, ("vlc_fused4", "pack_fused4"))
+        if grow.max_slice_bytes <= 2560:
+            raise AssertionError("the sharded forced-regrow run did not regrow")
+        want_err = ("padded frame has 68 MB rows, not divisible by the rows mesh axis (3); "
+                    "pick n_rows dividing 68")
+        try:
+            sharded((1, 3), quality=QUALITY).encode(frames)
+            raise AssertionError("mesh (1, 3) did not raise on 68 MB rows")
+        except ValueError as e:
+            print(f"mesh (1, 3): ValueError {str(e)!r}")
+            if str(e) != want_err:
+                raise
+        print(f"sharded encodes on cuda:0, 5 meshes x 6 runs + 2: "
+              f"{time.perf_counter() - t_sh:.2f} s {tag}")
+        for key, (rgb_fps, planes_fps) in rates.items():
+            print(f"{key} on cuda:0, 16x1080p q={QUALITY}: encode {rgb_fps:.2f} frames/s, "
+                  f"encode_from_planes {planes_fps:.2f} frames/s {tag}")
+        if torch.cuda.device_count() >= 2:
+            two = [torch.device("cuda", 0), torch.device("cuda", 1)]
+            with torch.cuda.device(1):
+                got = ShardedTorchMPEG1Encoder(quality=QUALITY, mesh=make_mesh(2, 1, two)).encode(
+                    frames)
+                kept = torch.cuda.current_device() == 1
+            _check_equal("mesh (2, 1) over cuda:0 and cuda:1", got, cpu_rgb)
+            print(f"mesh (2, 1) over two cards with cuda:1 current: current device kept {kept}")
+            if not kept:
+                raise AssertionError("a two-card encode changed the current device (C-h5)")
+        else:
+            print(f"multi-card claim unverified: {torch.cuda.device_count()} CUDA device "
+                  "visible, so no mesh spans two cards and hazard C-h5 across cards is not shown")
+
+        # ---- 24. the port's decoder: started here, read after phase 26 --------
+        from concurrent.futures import ProcessPoolExecutor
+
+        from ec504_imageencoder_tpu_torch.io.jpeg import load_folder
+        from ec504_imageencoder_tpu_torch.models.decoder import decode_es, decode_stream, psnr
+        from ec504_imageencoder_tpu_torch.syntax.headers import sequence_end
+
+        dec_dir = entry_dir / "decode"
+        dec_dir.mkdir()
+        np.save(dec_dir / "frames.npy", frames)
+        np.save(dec_dir / "ps_frames.npy", load_folder(str(ps_jpegs))[0])
+        decodes = {  # name -> (stream, colour range, source frames, PSNR floor key)
+            f"16x1080p rgb q={QUALITY}": (es_rgb + sequence_end(), "studio", "frames.npy",
+                                          f"q={QUALITY}"),
+            f"16x1080p rgb q={HQ_QUALITY}": (hq_rgb + sequence_end(), "studio", "frames.npy",
+                                             f"q={HQ_QUALITY}"),
+            "phase 23's --container ps stream, 4 x 1080p q=50": (ps_path.read_bytes(), "studio",
+                                                                 "ps_frames.npy", "ps"),
+            "compat golden stream": (gold_mpeg, "full", None, None),
+        }
+        t_dec = time.perf_counter()
+        pool = ProcessPoolExecutor(max_workers=len(decodes),
+                                   mp_context=multiprocessing.get_context("spawn"))
+        jobs = {}
+        for i, (name, (data, cr, ref, _)) in enumerate(decodes.items()):
+            path = dec_dir / f"stream_{i}.mpeg"
+            path.write_bytes(data)
+            jobs[name] = pool.submit(_decode_job, str(path), cr, ref and str(dec_dir / ref))
+        # mpeg-decode-torch (its module, as the console script runs it) on the
+        # program stream: PPM with --psnr-ref, and the default format
+        cli_runs = {"ppm": ["-o", dec_dir / "ppm", "--format", "ppm", "--psnr-ref", ps_jpegs],
+                    "default format": ["-o", dec_dir / "default"]}
+        for flags in cli_runs.values():
+            clis.append(subprocess.Popen(
+                [sys.executable, "-m", "ec504_imageencoder_tpu_torch.decode_cli", str(ps_path),
+                 *map(str, flags)], cwd=ROOT, text=True, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, env=dict(os.environ, PYTHONPATH=str(ROOT))))
+        # the scalar spec oracle against decode_stream on a small card-made stream
+        small = TorchMPEG1IntraEncoder(quality=QUALITY, device=dev).encode(
+            frames[:2, :144, :176]) + sequence_end()
+        t0 = time.perf_counter()
+        slow = decode_es(small)
+        slow_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fast = decode_stream(small)
+        fast_s = time.perf_counter() - t0
+        same = len(slow) == len(fast) == 2 and all(
+            a.shape == (144, 176, 3) and np.array_equal(a, b) for a, b in zip(slow, fast))
+        small_psnr = [round(float(psnr(a, b)), 4) for a, b in zip(frames[:2, :144, :176], fast)]
+        print(f"decode_es (scalar oracle) vs decode_stream, 2 x 144x176 q={QUALITY} from the "
+              f"card: pixels equal {same}, PSNR {small_psnr} dB; "
+              f"{slow_s:.3f} s against {fast_s:.3f} s on the host {tag}")
+        if not same:
+            raise AssertionError("decode_es and decode_stream disagree")
+
+        # ---- 26. two processes on the one card: encode_multihost over gloo ------
+        mh = entry_dir / "multihost"
+        mh.mkdir()
+        mh_frames = np.ascontiguousarray(frames[:MULTIHOST_FRAMES])
+        np.save(mh / "frames.npy", mh_frames)
+        (mh / "child.py").write_text(_MULTIHOST_CHILD)
+        t0 = time.perf_counter()
+        want_mh = TorchMPEG1IntraEncoder(quality=QUALITY, gop_size=1, device=dev).encode(
+            mh_frames) + sequence_end()
+        one_s = time.perf_counter() - t0
+
+        def job(wd, name, env=None):
+            return _two_processes(mh / "child.py", (mh / wd, mh / name, mh / f"{wd}.log",
+                                                    mh / "frames.npy", QUALITY), env)
+
+        rcs, outs, wall = job("wd", "out.mpeg")
+        if rcs != [0, 0]:
+            raise AssertionError(f"encode_multihost returned {rcs}: {outs[0][1][-2000:]}"
+                                 f"{outs[1][1][-2000:]}")
+        print(f"encode_multihost, 2 processes on cuda:0 over gloo: {outs[0][0].strip()!r}, "
+              f"{outs[1][0].strip()!r}")
+        _check_equal(f"encode_multihost stitched stream ({MULTIHOST_FRAMES} x 1080p, GOPs of 1)",
+                     (mh / "out.mpeg").read_bytes(), want_mh, "one process's encode")
+        print(f"encode_multihost wall time {wall:.2f} s for {MULTIHOST_FRAMES} frames (two "
+              f"processes started, torch imported, the card reached, encoded, stitched); one "
+              f"process's encode in this process {one_s:.3f} s {tag}")
+        rcs, outs, wall1 = job("drill", "drill.mpeg", {"EC504_DRILL": "die"})
+        segs = sorted(p.name for p in (mh / "drill").glob("*.m1vseg"))
+        print(f"fault drill, first run: return codes {rcs}, segments {segs}")
+        if rcs != [0, 42] or (mh / "drill.mpeg").exists() or segs != [
+                f"seg_00000{g}.m1vseg" for g in (0, 1, 2, 4)]:
+            raise AssertionError(f"the fault drill's first run went wrong: {outs[0][1][-2000:]}"
+                                 f"{outs[1][1][-2000:]}")
+        rcs, outs, wall2 = job("drill", "drill.mpeg")
+        again = [tuple(map(int, ln.split())) for ln in
+                 (mh / "drill.log").read_text().splitlines()][4:]
+        print(f"fault drill, restart: return codes {rcs}, re-encoded (rank, start, end) "
+              f"{sorted(again)}; {wall1:.2f} s + {wall2:.2f} s {tag}")
+        if rcs != [0, 0] or sorted(again) != [(1, 3, 4), (1, 5, 6)]:
+            raise AssertionError(f"the restart re-encoded {again}: {outs[0][1][-2000:]}"
+                                 f"{outs[1][1][-2000:]}")
+        _check_equal("fault drill, stitched after the restart", (mh / "drill.mpeg").read_bytes(),
+                     want_mh, "one process's encode")
+
+        # ---- 24, read: the decodes and mpeg-decode-torch --------------------------
+        for name, (_, _, _, floor) in decodes.items():
+            r = jobs[name].result(timeout=600)
+            if floor is None:
+                print(f"decode {name}: {r.get('error')!r} after {r['s']:.2f} s {tag}; the "
+                      f"reference's decoder on the CPU: {GOLDEN_DECODE_ERROR!r}")
+                if r.get("error") != GOLDEN_DECODE_ERROR:
+                    raise AssertionError(f"decoding the {name} went otherwise than the reference")
+                continue
+            if "error" in r:
+                raise AssertionError(f"decode {name}: {r['error']}")
+            n_want = 4 if floor == "ps" else BATCH
+            mean, least = float(np.mean(r["psnr"])), min(r["psnr"])
+            f_mean, f_least = PSNR_FLOORS[floor]
+            print(f"decode {name}: {r['frames']} frames {r['shapes']}, PSNR mean {mean!r} dB, "
+                  f"least {least!r} dB (floors {f_mean}, {f_least}); {r['frames'] / r['s']:.3f} "
+                  f"frames/s on the host ({r['s']:.2f} s in one worker process, {len(decodes)} "
+                  f"decodes, 2 CLI decodes and phase 26 running beside it; {os.cpu_count()} "
+                  f"host cores) "
+                  f"{tag}")
+            if r["frames"] != n_want or r["shapes"] != [(HEIGHT, WIDTH, 3)]:
+                raise AssertionError(f"decode {name}: wrong frame count or shape")
+            if mean < f_mean or least < f_least:
+                raise AssertionError(f"decode {name}: PSNR below its CPU-derived floor")
+        outs = [p.communicate(timeout=600) for p in clis]
+        for (label, flags), p, (out, err) in zip(cli_runs.items(), clis, outs):
+            folder = Path(flags[1])
+            files = sorted(f.name for f in folder.iterdir())
+            print(f"mpeg-decode-torch {label}: rc {p.returncode}, stdout {out.strip()!r}, "
+                  f"stderr {err.strip()[-300:]!r}, files {files}")
+            if p.returncode != 0 or not out.startswith("decoded 4 frames, 1920x1080\n"):
+                raise AssertionError(f"mpeg-decode-torch {label} failed")
+            exts = {f.rsplit(".", 1)[1] for f in files}
+            if len(files) != 4 or not (exts == {"ppm"} or (label != "ppm" and exts == {"png"})):
+                raise AssertionError(f"mpeg-decode-torch {label} wrote {files}")
+            if exts == {"ppm"} and label != "ppm" and "PIL unavailable" not in err:
+                raise AssertionError("mpeg-decode-torch fell back to PPM without saying so")
+            if label == "ppm":
+                said = float(re.search(r"mean PSNR: ([0-9.]+) dB", out).group(1))
+                if said < PSNR_FLOORS["ps"][0]:
+                    raise AssertionError(f"mpeg-decode-torch --psnr-ref: {said} dB")
+        print(f"phase 24's decodes took {time.perf_counter() - t_dec:.2f} s of wall time beside "
+              f"phase 26 {tag}")
     finally:
+        for p in clis:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        if pool is not None:
+            pool.shutdown(wait=True, cancel_futures=True)
         shutil.rmtree(entry_dir, ignore_errors=True)
+    print(f"chip_smoke: the whole run took {time.perf_counter() - t_start:.1f} s {tag}")
 
     src = "ec504_imageencoder_tpu_torch/csrc/"
     rows = [

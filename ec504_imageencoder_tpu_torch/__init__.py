@@ -12,12 +12,17 @@ The entry points are the reference's: `mpeg_encode_procedure` and
 (`python -m ec504_imageencoder_tpu_torch.cli`, console script
 `mpeg-encode-torch`) and a C ABI shim (`io/native/encoder_capi.cpp`); they
 run on "cuda" unless asked for the CPU.  JPEG folders are decoded by the
-port's own g++ build of the stb-compatible decoder (`io/`).
+port's own g++ build of the stb-compatible decoder (`io/`).  Streams
+decode back to frames with the host decoder `models/decoder.py` (console
+script `mpeg-decode-torch`).  `parallel/` spreads an encode over several
+devices (`ShardedTorchMPEG1Encoder` on a `make_mesh` (data, rows) mesh, the
+CLI's --mesh) and over processes (`encode_multihost` on torch.distributed).
 
 The package stands alone: it keeps its own copies of the reference's
 host code (tables, header builders, slice sizing, stream assembly, JPEG
-intake, muxing, metrics, checkpointing), held equal to the reference's by
-the tests, and imports neither JAX nor anything of the reference package.
+intake, muxing, metrics, checkpointing, the decoder), held equal to the
+reference's by the tests, and imports neither JAX nor anything of the
+reference package.
 """
 
 from ec504_imageencoder_tpu_torch.api import encode_video, mpeg_encode_procedure

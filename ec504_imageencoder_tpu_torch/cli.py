@@ -3,8 +3,8 @@
 The port's counterpart of the JAX package's `mpeg-encode`
 (`ec504_imageencoder_tpu/cli.py`): the reference's entry surface (main.c:15-17
 / mpeg_encode_procedure, encoder.h:20) plus correct mode, quality, GOP,
-frame-rate and intake controls, with the same flags, defaults, help and
-errors.  `--backend jax|numpy` is `--device cuda|cpu` here (default cuda:
+frame-rate, intake and mesh controls, with the same flags, defaults, help
+and errors.  `--backend jax|numpy` is `--device cuda|cpu` here (default cuda:
 without CUDA the command exits with an error, it never encodes on the CPU
 unasked); `--debug-checks`, `--fuse` and `--pack` reach the encoder keywords
 that the reference sets through EC504_DEBUG_CHECKS, EC504_FUSE and
@@ -30,7 +30,6 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="mpeg-encode-torch",
         description="MPEG-1 intra-frame encoder on PyTorch + CUDA",
-        epilog="Not yet ported from mpeg-encode: --mesh (multi-device encodes).",
     )
     p.add_argument("images", help="folder of input JPEG frames")
     p.add_argument("-o", "--output", default="awesome_video.mpeg",
@@ -52,6 +51,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="MPEG-1 frame rate code (3 = 25fps)")
     p.add_argument("--batch", type=int, default=16,
                    help="frames per device batch (correct mode)")
+    p.add_argument("--mesh", default=None,
+                   help="use all devices as DATAxROWS mesh, e.g. '4,2' "
+                        "(--device cpu: that many CPU entries)")
     p.add_argument("--workdir", default=None,
                    help="checkpointed encode: write per-GOP segments + "
                         "manifest here and resume any interrupted run")
@@ -173,7 +175,7 @@ def _encode_correct(args, device, metrics, source, frames, n_frames, res_w, res_
     from ec504_imageencoder_tpu_torch.models.mpeg1 import TorchMPEG1IntraEncoder
     from ec504_imageencoder_tpu_torch.syntax import headers
 
-    enc = TorchMPEG1IntraEncoder(
+    kw = dict(
         quality=50 if args.quality is None else args.quality,
         frame_rate_code=args.frame_rate_code,
         gop_size=args.gop,
@@ -182,12 +184,25 @@ def _encode_correct(args, device, metrics, source, frames, n_frames, res_w, res_
         debug_checks=args.debug_checks,
         fuse=args.fuse,
         pack=args.pack,
-        device=device,
     )
+    if args.mesh:
+        from ec504_imageencoder_tpu_torch.parallel import mesh as mesh_lib
+        from ec504_imageencoder_tpu_torch.parallel.sharded_encoder import (
+            ShardedTorchMPEG1Encoder,
+        )
+
+        nd, nr = (int(x) for x in args.mesh.split(","))
+        devices = ["cpu"] * (nd * nr) if device.type == "cpu" else None
+        mesh = mesh_lib.make_mesh(nd, nr, devices)
+        enc = ShardedTorchMPEG1Encoder(mesh=mesh, **kw)
+        n_devices = len(mesh.distinct_devices())
+    else:
+        enc = TorchMPEG1IntraEncoder(device=device, **kw)
+        n_devices = torch.cuda.device_count() if device.type == "cuda" else None
     if args.metrics:
         enc.metrics = metrics
-        if device.type == "cuda":
-            metrics.set("n_devices", torch.cuda.device_count())
+        if n_devices is not None:
+            metrics.set("n_devices", n_devices)
     if args.workdir:
         from ec504_imageencoder_tpu_torch.runtime.checkpoint import encode_resumable
 

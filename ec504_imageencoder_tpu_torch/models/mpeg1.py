@@ -256,9 +256,12 @@ class EncodeCore(nn.Module):
     def luts(self) -> Luts:
         return Luts(self.zigzag, self.ac_code, self.ac_len, self.dc_code, self.dc_len)
 
-    def forward(self, y, cb, cr, max_slice_bytes: int, debug_checks: bool = False):
+    def forward(self, y, cb, cr, max_slice_bytes: int, debug_checks: bool = False,
+                first_row: int = 0):
         """y (B, H, W) u8, cb/cr (B, H/2, W/2) u8, H and W multiples of 16
         -> (seg (B, H/16, max_slice_bytes) u8, nbits (B, H/16) int32).
+        first_row: the picture's MB row of the planes' first (a row
+        shard's offset); it numbers the slice headers.
 
         nbits is each slice's true bit count, also when it exceeds
         8 * max_slice_bytes (the segment then holds its first bytes).
@@ -291,7 +294,7 @@ class EncodeCore(nn.Module):
                 levels, preds = plane_levels(y, cb, cr, self.qw, self.zigzag)
                 slots = vlc_levels4(levels, preds, self.luts())
             seg, nbits = pack_fused4(*slots, mw, bit_offset=SLICE_HEADER_BITS)
-        seg = or_slice_headers(seg.view(bsz, mbh, max_slice_bytes), self.qscale)
+        seg = or_slice_headers(seg.view(bsz, mbh, max_slice_bytes), self.qscale, first_row)
         return seg, nbits.view(bsz, mbh)
 
     def raw_slots(self, y, cb, cr):
@@ -323,9 +326,9 @@ class EncodeCore(nn.Module):
 
 
 def correct_pipeline_planes(core: EncodeCore, y, cb, cr, max_slice_bytes: int,
-                            debug_checks: bool = False):
+                            debug_checks: bool = False, first_row: int = 0):
     """Padded 4:2:0 planes -> (seg, nbits); see EncodeCore.forward."""
-    return core(y, cb, cr, max_slice_bytes, debug_checks)
+    return core(y, cb, cr, max_slice_bytes, debug_checks, first_row)
 
 
 def edge_pad(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -351,10 +354,12 @@ def coeffs_to_planes(yc, cbc, crc, height: int, width: int):
 
 
 def correct_pipeline(core: EncodeCore, rgb, max_slice_bytes: int,
-                     color_range: str = "studio", debug_checks: bool = False):
+                     color_range: str = "studio", debug_checks: bool = False,
+                     first_row: int = 0):
     """(B, H, W, 3) u8 RGB, H and W multiples of 16 -> (seg, nbits)."""
     y, cb, cr = rgb_to_ycbcr(rgb, color_range)
-    return core(y, subsample_420(cb), subsample_420(cr), max_slice_bytes, debug_checks)
+    return core(y, subsample_420(cb), subsample_420(cr), max_slice_bytes, debug_checks,
+                first_row)
 
 
 class TorchMPEG1IntraEncoder:

@@ -6,7 +6,9 @@
   arithmetic right shifts, clipped to u8;
 * `rgb_to_ycbcr_exact`: compat mode's host colour in numpy f64, the
   reference C encoder's double arithmetic with its (unsigned char)
-  truncation (image_processing.c:68-110), which the `.bit` dumps hold.
+  truncation (image_processing.c:68-110), which the `.bit` dumps hold;
+* `upsample_420`, `ycbcr_to_rgb_f32`: the decoder's host half in numpy,
+  the reference's `xp=np` forms with its f32 operations in its order.
 """
 
 from __future__ import annotations
@@ -26,6 +28,35 @@ def rgb_to_ycbcr_exact(rgb: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndar
     cb = (128 - 0.168736 * r - 0.331264 * g + 0.5 * b).astype(np.uint8)
     cr = (128 + 0.5 * r - 0.418688 * g - 0.081312 * b).astype(np.uint8)
     return y, cb, cr
+
+
+def upsample_420(plane: np.ndarray) -> np.ndarray:
+    """Nearest-neighbour 2x replication (image_processing.c:607-638)."""
+    return np.repeat(np.repeat(plane, 2, axis=-2), 2, axis=-1)
+
+
+def ycbcr_to_rgb_f32(y, cb, cr, color_range: str = "full") -> np.ndarray:
+    """BT.601 inverse for the verification decoder, in numpy f32
+    (image_processing.c:678-686 constants; implemented correctly — the
+    reference's own function reads Y/Cb/Cr all from the same buffer by
+    mistake and is never called).
+
+    color_range="studio" inverts rgb_to_ycbcr's studio range (16-235/16-240)."""
+    if color_range not in ("studio", "full"):
+        raise ValueError(
+            f"color_range must be 'studio' or 'full', got {color_range!r}"
+        )
+    yf = y.astype(np.float32)
+    cbf = cb.astype(np.float32) - 128.0
+    crf = cr.astype(np.float32) - 128.0
+    if color_range == "studio":
+        yf = (yf - 16.0) * (255.0 / 219.0)
+        cbf = cbf * (255.0 / 224.0)
+        crf = crf * (255.0 / 224.0)
+    r = yf + 1.402 * crf
+    g = yf - 0.344136 * cbf - 0.714136 * crf
+    b = yf + 1.772 * cbf
+    return np.stack([np.clip(v, 0.0, 255.0).astype(np.uint8) for v in (r, g, b)], axis=-1)
 
 
 def _u8(v: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Constant tables for MPEG-1 intra coding: numpy first, then torch.
 
-The port's own copy of the reference's `utils/tables.py` (the ISO tables
-and the compat AC table with the reference's run-0 off-by-one and its
-(16, 2) typo) and of the packed tables of `ops/mxu_lut.py`
+The port's own copy of the reference's `utils/tables.py` (the ISO tables,
+the decoder's macroblock address VLC, and the compat AC table with the
+reference's run-0 off-by-one and its (16, 2) typo) and of the packed
+tables of `ops/mxu_lut.py`
 (`ac_packed_table`, `_dc_packed`), under the reference's names.
 tests/test_torch_host.py holds every one equal to the reference's.
 
@@ -76,6 +77,23 @@ _DC_SIZE_CHROMA_BITS = [
 ]
 DC_SIZE_LUMA_CODE, DC_SIZE_LUMA_LEN = _codes(_DC_SIZE_LUMA_BITS)
 DC_SIZE_CHROMA_CODE, DC_SIZE_CHROMA_LEN = _codes(_DC_SIZE_CHROMA_BITS)
+
+# Macroblock address increment VLC, ISO 11172-2 Table B.1 (values 1..33),
+# plus stuffing (34) and escape (35), for the decoder.  Reference vlc.c:33-70.
+_MB_ADDRESS_BITS = [
+    "",  # 0: invalid
+    "1", "011", "010", "0011", "0010", "00011", "00010",
+    "0000111", "0000110", "00001011", "00001010", "00001001", "00001000",
+    "00000111", "00000110", "0000010111", "0000010110", "0000010101",
+    "0000010100", "0000010011", "0000010010", "00000100011", "00000100010",
+    "00000100001", "00000100000", "00000011111", "00000011110", "00000011101",
+    "00000011100", "00000011011", "00000011010", "00000011001", "00000011000",
+    "00000001111",  # 34: macroblock_stuffing
+    "00000001000",  # 35: macroblock_escape
+]
+MB_ADDRESS_CODE, MB_ADDRESS_LEN = _codes(_MB_ADDRESS_BITS)
+MB_STUFFING = 34
+MB_ESCAPE = 35
 
 # AC run/level VLC, Tables B.5c/d, without the sign bit: run -> bit-strings
 # for |level| = first_level.. (run 0 starts at 2: (0, 1) has the dedicated

@@ -10,7 +10,8 @@ JAX):
 The encoders on the card are held against the JAX package's numpy
 reference (`backend="numpy"`, host code that imports no JAX) and against
 the same encoders on the CPU (the twins); the CLI and the C ABI shim on
-the card against the same entry points on the CPU.
+the card against the same entry points on the CPU; the sharded encoder on
+meshes of cuda:0 (and, with two cards, over both) against the CPU.
 
 Tolerance: exact (0) everywhere: the kernels are integer arithmetic, and
 the f32 DCT in front of B3 is separate IEEE f32 multiplies and adds in the
@@ -45,6 +46,8 @@ from ec504_imageencoder_tpu_torch.ops import (
 )
 from ec504_imageencoder_tpu_torch.ops.cuda_vlc import Luts
 from ec504_imageencoder_tpu_torch.ops.dct import matmul_dct
+from ec504_imageencoder_tpu_torch.parallel.mesh import make_mesh
+from ec504_imageencoder_tpu_torch.parallel.sharded_encoder import ShardedTorchMPEG1Encoder
 from ec504_imageencoder_tpu_torch.utils.tables import scale_quantization_matrix
 
 
@@ -758,3 +761,64 @@ def test_capi_shim_on_card_equals_cpu(cuda, tmp_path, monkeypatch):
         assert run(d) == 0
         outs.append(_outputs(d))
     assert outs[0] == outs[1] == outs[2] and len(outs[0][1]) == 6
+
+
+# ---- the sharded encoder (A10) --------------------------------------------
+
+@pytest.fixture
+def two_cards(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: the multi-card mesh and hazard C-h5 across "
+                    "cards cannot be shown on one")
+    return [torch.device("cuda", 0), torch.device("cuda", 1)]
+
+
+# route -> (encoder keywords, the emission kernel's module and counter)
+SHARDED_ROUTES = {
+    "q=50": (dict(quality=50), cuda_vlc, "launches"),
+    "q=50 fuse=8": (dict(quality=50, fuse=8), cuda_vlc, "launches8"),
+    "q=85": (dict(quality=85), cuda_vlc_levels, "launches"),
+    "q=50 debug_checks": (dict(quality=50, debug_checks=True), cuda_vlc_raw, "launches"),
+}
+
+
+@pytest.mark.parametrize("route", list(SHARDED_ROUTES))
+@pytest.mark.parametrize("shape", [(1, 1), (1, 2), (1, 4), (2, 1), (2, 2)])
+def test_sharded_on_card_equals_cpu(cuda, shape, route):
+    """Shards on cuda:0, each its own launch: the CPU path's bytes from RGB
+    and planes, one emission launch per shard per batch."""
+    kw, mod, counter = SHARDED_ROUTES[route]
+    rng = np.random.default_rng(sum(shape) + kw["quality"])
+    frames = rng.integers(0, 256, (3, 128, 176, 3), dtype=np.uint8)
+    planes = (frames[..., 0], frames[:, ::2, ::2, 1], frames[:, ::2, ::2, 2])
+    enc = ShardedTorchMPEG1Encoder(mesh=make_mesh(*shape, [cuda] * (shape[0] * shape[1])), **kw)
+    setattr(mod, counter, 0)
+    got = enc.encode(frames)
+    assert getattr(mod, counter) == shape[0] * shape[1]
+    assert got == _cpu_encode(frames, **kw)
+    assert enc.encode_from_planes(*planes) == TorchMPEG1IntraEncoder(
+        device="cpu", **kw).encode_from_planes(*planes)
+
+
+def test_sharded_two_cards_equals_cpu(two_cards):
+    """A (2, 1) mesh over two cards: each card encodes its frames with its
+    own core; the bytes are the CPU path's and the caller's device stays."""
+    frames = np.random.default_rng(3).integers(0, 256, (4, 64, 96, 3), dtype=np.uint8)
+    enc = ShardedTorchMPEG1Encoder(quality=50, mesh=make_mesh(2, 1, two_cards))
+    assert sorted(str(d) for d in enc.cores) == ["cuda:0", "cuda:1"]
+    with torch.cuda.device(1):
+        assert enc.encode(frames) == _cpu_encode(frames, quality=50)
+        assert torch.cuda.current_device() == 1
+
+
+def test_launch_leaves_the_current_device_on_two_cards(two_cards):
+    """Hazard C-h5 across cards: each kernel launched on one card while
+    the other is current leaves the current device as it was."""
+    for dev, current in zip(two_cards, (1, 0)):
+        launches = _launch_each_kernel(dev)
+        torch.cuda.synchronize(dev)
+        for kernel in KERNELS:
+            with torch.cuda.device(current):
+                launches[kernel]()
+                assert torch.cuda.current_device() == current, kernel
+        torch.cuda.synchronize(dev)

@@ -2,7 +2,7 @@
 
 The port imports nothing of the JAX package, so it keeps copies of the
 host code it needs: the tables and packed lookup tables, the f32 DCT
-basis, the compat colour, quality to quantizer, slice sizing, padding, the
+basis, the compat colour, the decoder's upsampling and colour, quality to quantizer, slice sizing, padding, the
 header builders and the compat constants.  Each is compared here with the
 reference's own, for every quality 1..100 and a range of sizes.
 Tolerance: exact (0).
@@ -37,6 +37,7 @@ def _same(a, b):
     "INTRA_Q_MATRIX", "ZIGZAG_INDEX", "ZIGZAG_GATHER", "DC_SIZE_LUMA_CODE", "DC_SIZE_LUMA_LEN",
     "DC_SIZE_CHROMA_CODE", "DC_SIZE_CHROMA_LEN", "AC_CODE_COMPAT", "AC_LEN_COMPAT",
     "AC_CODE_CORRECT", "AC_LEN_CORRECT", "MAX_RUN", "MAX_AC_LEVEL",
+    "MB_ADDRESS_CODE", "MB_ADDRESS_LEN", "MB_STUFFING", "MB_ESCAPE",
 ])
 def test_table(name):
     assert _same(getattr(tables, name), getattr(ref_tables, name))
@@ -59,6 +60,34 @@ def test_compat_colour():
     rgb = np.random.default_rng(0).integers(0, 256, (3, 37, 53, 3), dtype=np.uint8)
     for got, want in zip(color.rgb_to_ycbcr_exact(rgb), ref_color.rgb_to_ycbcr_exact(rgb)):
         assert _same(got, want)
+
+
+@pytest.mark.parametrize("shape", [(4, 3), (2, 5, 7), (3, 8, 8)])
+def test_upsample_420(shape):
+    p = np.random.default_rng(1).integers(0, 256, shape, dtype=np.uint8)
+    assert _same(color.upsample_420(p), ref_color.upsample_420(p, np))
+
+
+@pytest.mark.parametrize("color_range", ["studio", "full"])
+def test_ycbcr_to_rgb_f32(color_range):
+    """The decoder's colour on every Y value and a grid of chroma pairs,
+    planes of odd size: exact, the reference's f32 operations in order."""
+    rng = np.random.default_rng(2)
+    y = np.broadcast_to(np.arange(256, dtype=np.uint8)[:, None], (256, 33)).copy()
+    cb = rng.integers(0, 256, (256, 33), dtype=np.uint8)
+    cr = rng.integers(0, 256, (256, 33), dtype=np.uint8)
+    cb[:, 0], cr[:, 0] = np.arange(256), 255 - np.arange(256)
+    assert _same(color.ycbcr_to_rgb_f32(y, cb, cr, color_range=color_range),
+                 ref_color.ycbcr_to_rgb_f32(y, cb, cr, np, color_range=color_range))
+
+
+def test_ycbcr_to_rgb_f32_rejects_a_range():
+    z = np.zeros((2, 2), np.uint8)
+    with pytest.raises(ValueError) as want:
+        ref_color.ycbcr_to_rgb_f32(z, z, z, np, color_range="pc")
+    with pytest.raises(ValueError) as got:
+        color.ycbcr_to_rgb_f32(z, z, z, color_range="pc")
+    assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("quality", QUALITIES)

@@ -53,6 +53,14 @@ mpeg, dumps = c.encode_compat(np.zeros((2, 144, 96, 3), np.uint8), 12, device="c
 assert mpeg[:4] == bytes([0, 0, 1, 0xBA]) and len(dumps) == 2
 mpeg2, _ = c.encode_compat(np.zeros((2, 144, 96, 3), np.uint8), 12, device="cpu", debug_checks=True)
 assert mpeg2 == mpeg
+from ec504_imageencoder_tpu_torch.models.decoder import decode_stream
+from ec504_imageencoder_tpu_torch.parallel.mesh import make_mesh
+from ec504_imageencoder_tpu_torch.parallel.sharded_encoder import ShardedTorchMPEG1Encoder
+from ec504_imageencoder_tpu_torch.syntax.headers import sequence_end
+dec = decode_stream(es + sequence_end())
+assert len(dec) == 2 and dec[0].shape == (24, 40, 3)
+sharded = ShardedTorchMPEG1Encoder(quality=50, mesh=make_mesh(2, 2, ["cpu"] * 4))
+assert sharded.encode(frames) == es
 import os
 import shutil
 import tempfile
