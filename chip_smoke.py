@@ -173,7 +173,16 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    process's encode, and its wall time; then the fault drill of
    tests/test_runtime.py: rank 1 dies after its first GOP, rank 0 banks
    its share, the job restarts and re-encodes only GOPs 3 and 5, and the
-   stream is the same.
+   stream is the same;
+27. device-side slice compaction (after phase 26): phase 8's 16 x 1080p
+   planes through correct_pipeline_planes at q=85 (B3, B2) and q=50 (B1,
+   B2), compact_slices on the card at bench.py's capacity, the dense
+   prefix fetched (rounded up to 65,536 words), split_compact_slices and
+   assemble(rows) byte-equal to encode_from_planes; the card's dense
+   words and offsets equal to compact_slices on CPU tensors of the same
+   slices; compact_slices' ms beside its bytes floor and the two
+   device-to-host copies (the dense prefix, the encoder's bucketed
+   prefix) with their byte counts, recorded, not claimed.
 
 The whole run's time is printed before the kernels line.  The line
 before the last is a JSON summary of the kernels (time, twin time, least
@@ -746,7 +755,11 @@ def main() -> int:
         cuda_vlc_raw,
         jpeg_device,
     )
-    from ec504_imageencoder_tpu_torch.ops.bitpack import fuse4
+    from ec504_imageencoder_tpu_torch.ops.bitpack import (
+        compact_slices,
+        fuse4,
+        split_compact_slices,
+    )
     from ec504_imageencoder_tpu_torch.ops.color import (
         rgb_to_ycbcr,
         rgb_to_ycbcr_exact,
@@ -1906,6 +1919,50 @@ def main() -> int:
         if pool is not None:
             pool.shutdown(wait=True, cancel_futures=True)
         shutil.rmtree(entry_dir, ignore_errors=True)
+
+    # ---- 27. device-side slice compaction and assemble's compacted form ------
+    torch.cuda.empty_cache()
+    planes_dev = [torch.from_numpy(p).to(dev) for p in mpeg1.pad_planes_to_macroblocks(jy, jcb, jcr)]
+    for q, want, must in ((HQ_QUALITY, hq_planes, ("vlc_levels4", "pack_fused4")),
+                          (QUALITY, es_planes, ("vlc_fused4", "pack_fused4"))):
+        enc_k = TorchMPEG1IntraEncoder(quality=q, device=dev)
+        _check_equal(f"phase 27 encode_from_planes q={q}", enc_k.encode_from_planes(jy, jcb, jcr),
+                     want, "phase 4's or 8's bytes")
+        msb = enc_k.max_slice_bytes
+        reset_launches()
+        seg, bits_dev = mpeg1.correct_pipeline_planes(enc_k.core, *planes_dev, msb)
+        _check_launches(f"phase 27 q={q} slices", read_launches(), must)
+        bits = bits_dev.cpu().numpy()
+        if int(bits.max()) > 8 * msb or int(bits.min()) < 0:
+            raise AssertionError(f"q={q}: a slice overflowed {msb} B or reported violations")
+        n_slices, mw = seg.shape[0] * seg.shape[1], msb // 4
+        # bench.py's capacity and its fetch, rounded up to 65,536 words
+        cap = 1 << (n_slices * mw + mw - 1).bit_length()
+        used_w = int(((bits.astype(np.int64) + 31) // 32).sum())
+        fetch_w = min(-(-used_w // 65536) * 65536, cap)
+        dense, offs = compact_slices(seg, bits_dev, cap)
+        rows = split_compact_slices(dense[:fetch_w].cpu().numpy(), bits)
+        _check_equal(f"q={q} assemble(compacted rows)", enc_k.assemble(rows, bits, WIDTH, HEIGHT),
+                     want, "encode_from_planes")
+        cpu_dense, cpu_offs = compact_slices(seg.cpu(), bits_dev.cpu(), cap)
+        same = torch.equal(dense.cpu(), cpu_dense) and torch.equal(offs.cpu(), cpu_offs)
+        print(f"q={q} compact_slices on the card vs the CPU: {cap} words, offsets "
+              f"{tuple(offs.shape)}, word-equal {same}")
+        if not same:
+            raise AssertionError(f"q={q}: the card's compacted words differ from the CPU's")
+        used = -(-int(bits.max()) // 8)
+        bucket = min(max(256, 1 << max(used - 1, 1).bit_length()), msb)
+        compact_ms = _event_ms(torch, lambda: compact_slices(seg, bits_dev, cap), 20)
+        floor_ms = 1e3 * 2 * 4 * used_w / MEM_BYTES_PER_S
+        dense_ms = _event_ms(torch, lambda: dense[:fetch_w].cpu(), 20)
+        prefix_ms = _event_ms(torch, lambda: seg[:, :, :bucket].cpu(), 20)
+        print(f"q={q} compact_slices, 16x1080p ({n_slices} slices of {msb} B, {used_w} used "
+              f"words): {compact_ms:.4f} ms against a bytes floor of {floor_ms:.4f} ms {tag}")
+        print(f"q={q} device-to-host copy: dense[:{fetch_w}] {4 * fetch_w} B in {dense_ms:.4f} ms, "
+              f"the encoder's bucketed prefix seg[:, :, :{bucket}] {n_slices * bucket} B in "
+              f"{prefix_ms:.4f} ms {tag}")
+        del seg, bits_dev, dense, offs, cpu_dense, cpu_offs, rows
+    del planes_dev
     print(f"chip_smoke: the whole run took {time.perf_counter() - t_start:.1f} s {tag}")
 
     src = "ec504_imageencoder_tpu_torch/csrc/"

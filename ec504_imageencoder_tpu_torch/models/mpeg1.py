@@ -532,18 +532,27 @@ class TorchMPEG1IntraEncoder:
     def assemble(self, seg, bits, disp_w: int, disp_h: int,
                  first_frame_index: int = 0) -> bytes:
         """Sequence, GOP and picture headers plus the used byte prefix of
-        every slice of the fetched (seg (B, S, msb) u8, bits (B, S))."""
+        every slice of the fetched (seg (B, S, msb) u8, bits (B, S)).
+
+        seg may instead be the nested row list of
+        `ops.bitpack.split_compact_slices` (each slice already trimmed to
+        its bytes), as the reference's `assemble` takes it."""
+        compacted = isinstance(seg, list)
         out = bytearray()
-        for i in range(seg.shape[0]):
+        for i in range(len(seg) if compacted else seg.shape[0]):
             gi = first_frame_index + i
             if gi % self.gop_size == 0:
                 out += sequence_header_es(disp_w, disp_h, self.frame_rate_code,
                                           intra_matrix=self.intra_q)
                 out += gop_header_es(gi, self.fps)
             out += headers.picture_header(temporal_ref=gi % self.gop_size)
-            for s in range(seg.shape[1]):
-                nb = (int(bits[i, s]) + 7) // 8
-                out += bytes(seg[i, s, :nb])
+            if compacted:
+                for row in seg[i]:
+                    out += bytes(row)
+            else:
+                for s in range(seg.shape[1]):
+                    nb = (int(bits[i, s]) + 7) // 8
+                    out += bytes(seg[i, s, :nb])
         return bytes(out)
 
     def encode_from_planes(self, y, cb, cr, first_frame_index: int = 0) -> bytes:

@@ -24,15 +24,21 @@
 * `pack_words`: the same for plain <= 32-bit codes (the reference's
   `ops/bitpack.pack_words`), each spanning at most 2 words; `pack_words2`
   the same after `fuse2`, at most 3 words per fused pair.
+* `pack_bytes`: `pack_words` straight to big-endian bytes.
 * `words_to_bytes`, `or_slice_headers`: big-endian serialisation and
   the 38-bit slice header (`models/mpeg1._or_slice_headers`).
+* `compact_slices`, `split_compact_slices`: the device-side compaction
+  of the packed slice buffers into one dense word buffer (so that the
+  device-to-host copy carries about the stream's bytes, not the padded
+  buffers), and its host inverse.
 
-Every 32-bit quantity is carried in int64: torch on the CPU cannot shift
-or compare uint32.
+Every 32-bit quantity is carried in int64 (int32 for the compacted
+words): torch on the CPU cannot shift or compare uint32.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _I64 = torch.int64
@@ -209,6 +215,19 @@ def pack_words2(codes, lens, max_words: int, bit_offset: int = 0):
     return _pack_values((hi, lo), len2, max_words, bit_offset, False)
 
 
+def pack_bytes(codes, lens, max_bytes: int, bit_offset: int = 0):
+    """(..., K) <= 32-bit codes + (..., K) lengths -> (bytes (...,
+    max_bytes) u8, nbits (...,) int64): `pack_words` of the rows, then
+    `words_to_bytes`.  max_bytes % 4 == 0."""
+    if max_bytes % 4:
+        raise ValueError(f"max_bytes must be a multiple of 4, got {max_bytes}")
+    k = codes.shape[-1]
+    words, nbits = pack_words(codes.reshape(-1, k), lens.reshape(-1, k), max_bytes // 4,
+                              bit_offset)
+    batch = codes.shape[:-1]
+    return words_to_bytes(words).reshape(*batch, max_bytes), nbits.reshape(batch)
+
+
 def words_to_bytes(words: torch.Tensor) -> torch.Tensor:
     """(..., W) 32-bit words (int64) -> (..., 4W) u8, big-endian."""
     w = words.to(_I64)
@@ -230,3 +249,66 @@ def or_slice_headers(seg: torch.Tensor, qscale: int, first_row: int = 0) -> torc
     hdr[:, 4] = (qscale & 0x1F) << 3
     seg[..., :5] |= hdr
     return seg
+
+
+def compact_slices(seg: torch.Tensor, bits: torch.Tensor, cap_words: int):
+    """Gather every slice's used word prefix into one dense buffer, on
+    seg's device: the reference's `ops/bitpack.py::compact_slices`, its
+    whole buffer word for word.
+
+    seg: (B, S, msb) u8 slice buffers, msb % 4 == 0; bits: (B, S) bit
+    counts >= 0.  Returns (dense (cap_words,) int32, offs (B*S,) int32):
+    slice i's used words ceil(bits_i / 32) start at word offs_i (their
+    exclusive sum), and dense is a bitcast of the byte stream (each word
+    holds 4 bytes in stream order, little-endian).
+
+    As in the reference, every row writes all msb / 4 of its words, in
+    row order, at start_i = min(offs_i, cap_words - msb / 4) (the clamp
+    of `dynamic_update_slice`), and what no row writes stays 0.  So a
+    row's unused tail lands where the next row starts, and is overwritten
+    by it; with cap_words >= sum(used words) + msb / 4 every used prefix
+    survives.  A smaller cap_words clamps the last rows' starts back over
+    earlier rows, which the reference does too (hazard C-r4).
+    cap_words < msb / 4 raises ValueError, where the reference raises
+    TypeError.
+
+    No write loop: the starts never decrease, so word p comes from the
+    last row j with start_j <= p, as row_j[p - start_j] when that is
+    inside the row, else 0."""
+    b, s, msb = seg.shape
+    if msb % 4:
+        raise ValueError(f"slice buffers of {msb} B are not whole words")
+    mw = msb // 4
+    if cap_words < mw:
+        raise ValueError(f"cap_words={cap_words} is below one slice buffer ({mw} words)")
+    rows = seg.reshape(b * s, msb)
+    if not rows.is_contiguous() or rows.storage_offset() % 4:
+        rows = rows.clone(memory_format=torch.contiguous_format)
+    words = rows.view(torch.int32).reshape(-1)
+    used_w = torch.div(bits.reshape(-1).to(torch.int64) + 31, 32, rounding_mode="floor")
+    ends = torch.cumsum(used_w, dim=0)
+    offs = (ends - used_w).to(torch.int32)
+    start = (ends - used_w).clamp(0, cap_words - mw).contiguous()
+    p = torch.arange(cap_words, dtype=torch.int64, device=seg.device)
+    j = torch.searchsorted(start, p, right=True) - 1
+    jc = j.clamp(min=0)
+    k = p - start[jc]
+    hit = (j >= 0) & (k < mw)
+    dense = torch.where(hit, words[jc * mw + k.clamp(0, mw - 1)], 0)
+    return dense, offs
+
+
+def split_compact_slices(dense_words: np.ndarray, bits: np.ndarray):
+    """Host inverse of `compact_slices` (numpy, int32 or uint32 words):
+    the (B, S) nested list of each slice's ceil(bits / 8) bytes, as views
+    of dense_words."""
+    byts = dense_words.view(np.uint8)
+    used_w = (bits.reshape(-1).astype(np.int64) + 31) // 32
+    offs = np.concatenate([[0], np.cumsum(used_w)[:-1]])
+    nby = (bits.reshape(-1) + 7) // 8
+    out = []
+    for i in range(bits.size):
+        start = int(offs[i]) * 4
+        out.append(byts[start:start + int(nby[i])])
+    b, s = bits.shape
+    return [out[r * s:(r + 1) * s] for r in range(b)]

@@ -1,9 +1,11 @@
 """BT.601 colour conversion and 4:2:0 subsampling.
 
-* `rgb_to_ycbcr`, `subsample_420`: torch int32, bit-identical to the
-  reference's `ops/color.py` (`_ycbcr_studio_i32`, `_ycbcr_full_i32`,
-  `subsample_420`): 16-bit fixed point with a 1<<15 rounding bias and
-  arithmetic right shifts, clipped to u8;
+* `rgb_to_ycbcr`, `rgb_to_ycbcr_studio`, `subsample_420`: torch int32,
+  bit-identical to the reference's functions of those names: 16-bit
+  fixed point with a 1<<15 rounding bias and arithmetic right shifts,
+  clipped to u8.  `rgb_to_ycbcr` is full range by default, as the
+  reference's is; `color_range="studio"` gives `rgb_to_ycbcr_studio`'s
+  planes;
 * `rgb_to_ycbcr_exact`: compat mode's host colour in numpy f64, the
   reference C encoder's double arithmetic with its (unsigned char)
   truncation (image_processing.c:68-110), which the `.bit` dumps hold;
@@ -41,7 +43,7 @@ def ycbcr_to_rgb_f32(y, cb, cr, color_range: str = "full") -> np.ndarray:
     reference's own function reads Y/Cb/Cr all from the same buffer by
     mistake and is never called).
 
-    color_range="studio" inverts rgb_to_ycbcr's studio range (16-235/16-240)."""
+    color_range="studio" inverts rgb_to_ycbcr_studio (16-235/16-240)."""
     if color_range not in ("studio", "full"):
         raise ValueError(
             f"color_range must be 'studio' or 'full', got {color_range!r}"
@@ -78,8 +80,10 @@ def _ycbcr_studio_i32(r, g, b):
     return _u8(y), _u8(cb), _u8(cr)
 
 
-def rgb_to_ycbcr(rgb: torch.Tensor, color_range: str = "studio"):
-    """(..., H, W, 3) u8 -> three (..., H, W) u8 planes."""
+def rgb_to_ycbcr(rgb: torch.Tensor, color_range: str = "full"):
+    """(..., H, W, 3) u8 -> three (..., H, W) u8 planes, BT.601 full range
+    (the reference C encoder's JPEG-style conversion) unless
+    color_range="studio" (Y 16-235, C 16-240)."""
     if color_range not in ("studio", "full"):
         raise ValueError(
             f"color_range must be 'studio' or 'full', got {color_range!r}"
@@ -87,6 +91,12 @@ def rgb_to_ycbcr(rgb: torch.Tensor, color_range: str = "studio"):
     i = rgb.to(torch.int32)
     fn = _ycbcr_studio_i32 if color_range == "studio" else _ycbcr_full_i32
     return fn(i[..., 0], i[..., 1], i[..., 2])
+
+
+def rgb_to_ycbcr_studio(rgb: torch.Tensor):
+    """(..., H, W, 3) u8 -> three (..., H, W) u8 planes, BT.601 studio
+    range (Y 16-235, C 16-240), which MPEG-1 decoders assume."""
+    return rgb_to_ycbcr(rgb, "studio")
 
 
 def subsample_420(plane: torch.Tensor) -> torch.Tensor:

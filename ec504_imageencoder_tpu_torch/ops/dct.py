@@ -1,4 +1,4 @@
-"""The two forward DCTs of the reference's `ops/dct.py`.
+"""The DCTs of the reference's `ops/dct.py`.
 
 * `aan_dct`: the exact int32 AAN transform, bit-identical to the
   reference's.  Same constants, same arithmetic right shifts (torch `>>`
@@ -6,8 +6,13 @@
   biases as `ec504_imageencoder_tpu.ops.dct.aan_dct` and the in-kernel
   `_aan_f_rows_a` of `ops/pallas_vlc.py`.  int32 products wrap exactly as
   they do there.
+* `aan_idct`: the reference C encoder's latent inverse (the forward
+  butterfly, columns then rows, with its clamps and u8 truncations), in
+  torch int32 likewise.
 * `matmul_dct`: the f32 orthonormal DCT of the high-quality path
   (quality >= 70), on the basis `dct_matrix_f32`.
+* `naive_dct_f64`, `naive_idct_f64`: the textbook f64 DCT of one block
+  (image_processing.c:157-183, 452-480), a host numpy oracle for tests.
 """
 
 from __future__ import annotations
@@ -49,14 +54,19 @@ def _aan_butterfly(a):
     return e0, e4, e2, e6, o_x3 + o_x1, o_x0 + o_x2, o_x3 - o_x1, o_x0 - o_x2
 
 
+def _first_pass(a):
+    """The butterfly of 8 int32 tensors and its first-pass descale, outputs
+    0..7 in order."""
+    e0, e4, e2, e6, o1, o5, o7, o3 = _aan_butterfly(a)
+    return [e0, (o1 + o5) >> 10, e2 >> 10, (o7 * _R2) >> 17,
+            e4, (o3 * _R2) >> 17, e6 >> 10, (o1 - o5) >> 10]
+
+
 def aan_dct(blocks: torch.Tensor) -> torch.Tensor:
     """(..., 8, 8) pixel blocks -> (..., 8v, 8u) int32 coefficients (x8)."""
     x = blocks.to(torch.int32)
     # row pass
-    e0, e4, e2, e6, o1, o5, o7, o3 = _aan_butterfly([x[..., :, k] for k in range(8)])
-    rows = [e0, (o1 + o5) >> 10, e2 >> 10, (o7 * _R2) >> 17,
-            e4, (o3 * _R2) >> 17, e6 >> 10, (o1 - o5) >> 10]
-    r = torch.stack(rows, dim=-1)
+    r = torch.stack(_first_pass([x[..., :, k] for k in range(8)]), dim=-1)
     # column pass
     e0, e4, e2, e6, o1, o5, o7, o3 = _aan_butterfly([r[..., k, :] for k in range(8)])
     out = [
@@ -70,6 +80,53 @@ def aan_dct(blocks: torch.Tensor) -> torch.Tensor:
         (o1 - o5 + 16384) >> 13,
     ]
     return torch.stack(out, dim=-2)
+
+
+def aan_idct(dct_blocks: torch.Tensor) -> torch.Tensor:
+    """(..., 8, 8) coefficients -> (..., 8, 8) u8: the reference C
+    encoder's AAN "inverse" (image_processing.c:492-603), which reuses the
+    forward butterfly (columns, then rows without the descale), clamps
+    outputs 0 and 4 to [0, 255] and truncates the others to their low
+    byte.  Kept for parity; it is not a mathematically correct IDCT."""
+    x = dct_blocks.to(torch.int32)
+    # column pass
+    c = torch.stack(_first_pass([x[..., k, :] for k in range(8)]), dim=-2)
+    # row pass
+    e0, e4, e2, e6, o1, o5, o7, o3 = _aan_butterfly([c[..., :, k] for k in range(8)])
+    out = [
+        e0.clamp(0, 255),
+        ((o1 + o5) >> 10) & 0xFF,
+        (e2 >> 10) & 0xFF,
+        ((o7 * _R2) >> 17) & 0xFF,
+        e4.clamp(0, 255),
+        ((o3 * _R2) >> 17) & 0xFF,
+        (e6 >> 10) & 0xFF,
+        ((o1 - o5) >> 10) & 0xFF,
+    ]
+    return torch.stack(out, dim=-1).to(torch.uint8)
+
+
+def _naive_basis():
+    n = 8
+    y = np.arange(n)
+    basis = np.cos((2 * y[:, None] + 1) * np.arange(n)[None, :] * np.pi / (2 * n))
+    cu = np.where(np.arange(n) == 0, np.sqrt(1 / n), np.sqrt(2 / n))
+    return basis, cu[:, None] * cu[None, :]
+
+
+def naive_dct_f64(block: np.ndarray) -> np.ndarray:
+    """One 8x8 block -> its orthonormal f64 DCT-II, dct[v, u] (vertical,
+    horizontal frequency), unscaled (no x8)."""
+    basis, cc = _naive_basis()
+    return cc * (basis.T @ block.reshape(8, 8).astype(np.float64) @ basis)
+
+
+def naive_idct_f64(dct_block: np.ndarray) -> np.ndarray:
+    """Inverse of `naive_dct_f64`, rounded (half to even, as np.round) and
+    clamped to u8 (the reference's round and clamp)."""
+    basis, cc = _naive_basis()
+    pix = basis @ (cc * dct_block.reshape(8, 8).astype(np.float64)) @ basis.T
+    return np.clip(np.round(pix), 0, 255).astype(np.uint8)
 
 
 def dct_matrix_f32() -> np.ndarray:

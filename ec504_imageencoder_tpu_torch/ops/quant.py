@@ -7,6 +7,10 @@ slow on a TPU).
   [0, 255].  AC: level = sign(F) * min(255, floor((16|F| + qW) / (2 qW)))
   with qW = qscale * W.
 * `quantize`: compat mode, the reference's `ops/quant.py::quantize`.
+* `exact_div_floor`: floor(a / q), which the reference computes by an f32
+  divide and an integer fix-up; here the integer division itself, equal
+  on the reference's domain (0 <= a < 2**23, q > 0).
+* `dequantize`: the reconstruction multiply (image_processing.c:438-446).
 """
 
 from __future__ import annotations
@@ -28,3 +32,14 @@ def quantize(f: torch.Tensor, scaled_q: torch.Tensor) -> torch.Tensor:
     int32 levels, truncated toward zero and not clamped (C's `/` on the
     reference's integral doubles)."""
     return torch.div(f, scaled_q, rounding_mode="trunc")
+
+
+def exact_div_floor(a: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """floor(a / q) for non-negative int32 a and positive int32 q."""
+    return torch.div(a.to(torch.int32), q.to(torch.int32), rounding_mode="floor")
+
+
+def dequantize(quantized: torch.Tensor, q_matrix: torch.Tensor) -> torch.Tensor:
+    """levels * matrix in int32 (the reference C encoder multiplies by the
+    unscaled base matrix; a correct decoder passes the scaled one)."""
+    return quantized.to(torch.int32) * q_matrix.to(torch.int32)

@@ -6,6 +6,8 @@ Port of `ec504_imageencoder_tpu.ops.vlc_device`:
   header and EOB folded in) and `models/mpeg1._dc_predictors`;
   `emit_correct64` is the same with the table lookups passed in (the
   lookup kernel B5 serves them in `ops/cuda_lut.py`);
+* `block_streams_correct`, the same emission in the reference's 65-slot
+  layout (DC, 63 AC, EOB; no macroblock header);
 * `block_streams_compat` and `ac_codes_compat` (the reference C
   encoder's bug-for-bug compat emission, 65 slots).
 
@@ -132,6 +134,22 @@ def emit_correct64(zz, dc_pred, is_luma, mb_first, dc_table, ac_table):
     codes = torch.where(lane == 0, code0[..., None], ac)
     lens = torch.where(lane == 0, len0[..., None], ac_l)
     return codes, lens
+
+
+def block_streams_correct(zz, dc_pred, is_luma, dc_code, dc_len, ac_code, ac_len):
+    """ISO intra block emission in the 65-slot layout: (..., 64) zigzag
+    levels with slot 0 the absolute DC, (...,) dc_pred and is_luma ->
+    int64 (codes, lens) of shape (..., 65): slot 0 the differential DC,
+    slots 1..63 the AC per zigzag position (length 0 where nothing is
+    emitted), slot 64 the EOB '10'.  The tables as for
+    `block_streams_correct64`."""
+    no_header = torch.zeros_like(dc_pred, dtype=torch.bool)
+    codes, lens = block_streams_correct64(zz, dc_pred, is_luma, no_header, dc_code, dc_len,
+                                          ac_code, ac_len)
+    # slot 63 carries the EOB folded in: split it back out
+    eob = torch.full_like(codes[..., :1], 0b10)
+    return (torch.cat([codes[..., :63], codes[..., 63:] >> 2, eob], dim=-1),
+            torch.cat([lens[..., :63], lens[..., 63:] - 2, torch.full_like(eob, 2)], dim=-1))
 
 
 def ac_codes_compat(lvl, zeros_before, ac_code, ac_len):

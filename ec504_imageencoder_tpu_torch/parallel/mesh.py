@@ -11,14 +11,16 @@ The port's counterpart of the JAX package's `parallel/mesh.py`.  A
 `DeviceMesh` is a plain `(n_data, n_rows)` grid of `torch.device` with the
 `.shape` dict of `jax.sharding.Mesh`.  There is no GSPMD to place the
 work, so the `NamedSharding` helpers of the reference (`frame_sharding`,
-`segment_sharding`, `bits_sharding`, `replicated`) have no counterpart;
-in their place:
+`segment_sharding`, `bits_sharding`, `replicated`) have no counterpart of
+their own name; in their place:
 
 * `split_batch` and `shard_host` cut a host batch into the per-device
   slabs that `frame_sharding` described (frames over `data`, image rows
   over `rows`), each contiguous for its host-to-device copy;
 * `ShardedTensor` holds the per-device outputs that `segment_sharding` and
-  `bits_sharding` described, and gathers them on the host on `.cpu()`.
+  `bits_sharding` described, and gathers them on the host on `.cpu()`;
+* what `replicated` placed on every device (the quantizer) goes there
+  with the one `EncodeCore` per device of `ShardedTorchMPEG1Encoder`.
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
-"""Host-side MSB-first bit writer for the header-side streams.
+"""Host-side MSB-first bit writer: the header-side streams and the scalar
+oracles.
 
-The port's copy of the reference's `syntax/bitwriter.py` (pure Python),
-the part the sequence header needs: the encoder appends (code, nbits)
-pairs and `tobytes` packs them.
+The port's copy of the reference's `syntax/bitwriter.py` (pure Python):
+the encoder appends (code, nbits) pairs and `tobytes` packs them;
+`pack_codes` is the scalar packer that the pack kernels are held to.
 """
 
 from __future__ import annotations
@@ -32,6 +33,11 @@ class BitWriter:
         self._lens.append(int(nbits))
         self._nbits += int(nbits)
 
+    def put_bits(self, bits: str) -> None:
+        """Append a literal bit-string like '0010'."""
+        if bits:
+            self.put(int(bits, 2), len(bits))
+
     def put_bytes(self, data: bytes) -> None:
         for b in data:
             self.put(b, 8)
@@ -52,3 +58,18 @@ class BitWriter:
                     out[pos >> 3] |= 128 >> (pos & 7)
                 pos += 1
         return out.tobytes()
+
+    def code_arrays(self) -> tuple[np.ndarray, np.ndarray]:
+        """The (code u64, nbits i32) pairs appended so far."""
+        return (
+            np.asarray(self._codes, dtype=np.uint64),
+            np.asarray(self._lens, dtype=np.int32),
+        )
+
+
+def pack_codes(codes: np.ndarray, lens: np.ndarray) -> bytes:
+    """Scalar packer: (code, len) arrays -> MSB-first bytes."""
+    w = BitWriter()
+    for c, n in zip(codes.tolist(), lens.tolist()):
+        w.put(int(c), int(n))
+    return w.tobytes()

@@ -1,7 +1,8 @@
 """Constant tables for MPEG-1 intra coding: numpy first, then torch.
 
 The port's own copy of the reference's `utils/tables.py` (the ISO tables,
-the decoder's macroblock address VLC, and the compat AC table with the
+the decoder's macroblock address VLC, the motion vector VLC, and the
+compat AC table with the
 reference's run-0 off-by-one and its (16, 2) typo) and of the packed
 tables of `ops/mxu_lut.py`
 (`ac_packed_table`, `_dc_packed`), under the reference's names.
@@ -67,6 +68,15 @@ def _codes(entries):
             length[i] = len(s)
     return code, length
 
+
+# Motion vector VLC, Table B.4 magnitudes 0..16 (sign bit appended for
+# nonzero values).  Unused by the I-frame path.
+_MV_BITS = [
+    "1", "010", "0010", "00010", "0000110", "00001010", "00001000",
+    "00000110", "0000010110", "0000010100", "0000010010", "00000100010",
+    "00000100000", "00000011110", "00000011100", "00000011010", "00000011000",
+]
+MV_CODE, MV_LEN = _codes(_MV_BITS)
 
 # dct_dc_size VLCs, Tables B.5a (luma) and B.5b (chroma), sizes 0..8.
 _DC_SIZE_LUMA_BITS = [
@@ -250,6 +260,7 @@ def _t(a: np.ndarray) -> torch.Tensor:
 
 
 ZIGZAG_GATHER_T = _t(ZIGZAG_GATHER)
+ZIGZAG_INDEX_T = _t(ZIGZAG_INDEX.reshape(-1))
 # [run 0..31, |level| 0..40] -> code (<= 16 bits, no sign) and len (0: escape)
 AC_CODE_T = _t(AC_CODE_CORRECT)
 AC_LEN_T = _t(AC_LEN_CORRECT)

@@ -30,6 +30,8 @@ names = [m.name for m in pkgutil.walk_packages(port.__path__, "ec504_imageencode
 for name in names:
     importlib.import_module(name)
 assert "ec504_imageencoder_tpu_torch.syntax.headers" in names
+assert {"ec504_imageencoder_tpu_torch.ops.rle_vlc",
+        "ec504_imageencoder_tpu_torch.models.oracle"} <= set(names)
 import ec504_imageencoder_tpu_torch.models.encoder as c
 import ec504_imageencoder_tpu_torch.models.mpeg1 as m
 frames = np.random.default_rng(0).integers(0, 256, (2, 24, 40, 3), dtype=np.uint8)
@@ -43,6 +45,13 @@ assert enc.encode_from_coeffs(yc, cc, cc, 24, 40)[:4] == es[:4]
 assert m.TorchMPEG1IntraEncoder(quality=50, fuse=8, device="cpu").encode(frames) == es
 for pack in m.PACKS:
     assert m.TorchMPEG1IntraEncoder(quality=50, pack=pack, device="cpu").encode(frames) == es
+import torch
+from ec504_imageencoder_tpu_torch.ops.bitpack import compact_slices, split_compact_slices
+planes = [torch.from_numpy(p) for p in m.pad_planes_to_macroblocks(
+    frames[..., 0], frames[:, ::2, ::2, 1], frames[:, ::2, ::2, 2])]
+seg, bits = m.correct_pipeline_planes(enc.core, *planes, enc.max_slice_bytes)
+dense, _ = compact_slices(seg, bits, 1 << 16)
+assert enc.assemble(split_compact_slices(dense.numpy(), bits.numpy()), bits.numpy(), 40, 24) == es2
 hq = m.TorchMPEG1IntraEncoder(quality=85, device="cpu")
 assert hq.dct_impl == "f32" and hq.encode(frames)[:4] == es[:4]
 for q in (50, 85):
@@ -53,6 +62,8 @@ mpeg, dumps = c.encode_compat(np.zeros((2, 144, 96, 3), np.uint8), 12, device="c
 assert mpeg[:4] == bytes([0, 0, 1, 0xBA]) and len(dumps) == 2
 mpeg2, _ = c.encode_compat(np.zeros((2, 144, 96, 3), np.uint8), 12, device="cpu", debug_checks=True)
 assert mpeg2 == mpeg
+from ec504_imageencoder_tpu_torch.models import oracle
+assert oracle.encode_compat(list(np.zeros((2, 144, 96, 3), np.uint8)), 12) == (mpeg, dumps)
 from ec504_imageencoder_tpu_torch.models.decoder import decode_stream
 from ec504_imageencoder_tpu_torch.parallel.mesh import make_mesh
 from ec504_imageencoder_tpu_torch.parallel.sharded_encoder import ShardedTorchMPEG1Encoder
