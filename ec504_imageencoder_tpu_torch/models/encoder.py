@@ -11,6 +11,13 @@ kernel B2 (38 bits in, 12,288 B per slice: the worst-case compat slice is
 12,026 B, so a slice never overflows), the slice headers (vpos 1..6,
 qscale 1), then the reference's two-step fetch and system-stream
 assembly.  On the CPU the kernels' plain twins run instead.
+
+While a profiler records, a call runs as a sequence of spans on the
+calling thread (`utils.profiling.stage_scope`): `encode.color` (the host
+colour), `encode.tables` (the core's tables built and copied),
+`encode.h2d`, `encode.enqueue`, `encode.fetch_bits`, `encode.fetch_prefix`
+(as in `models/mpeg1.py`) and `encode.assemble` (the system stream and
+the `.bit` dumps).
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from ec504_imageencoder_tpu_torch.ops.cuda_vlc_compat import (  # noqa: F401 (re
 )
 from ec504_imageencoder_tpu_torch.ops.vlc_device import slot_violations
 from ec504_imageencoder_tpu_torch.syntax import headers
+from ec504_imageencoder_tpu_torch.utils.profiling import stage_scope
 from ec504_imageencoder_tpu_torch.utils.tables import scale_quantization_matrix
 
 QUANT_SCALE = 1
@@ -113,12 +121,17 @@ def encode_compat(frames_rgb, quality: int = 12, *, device="cuda",
     bsz, h, w = frames.shape[:3]
     dev = resolve_device(device)
 
-    y, cb, cr = rgb_to_ycbcr_exact(frames)  # host C-double colour, as the reference
-    core = CompatCore(quality).to(dev)
-    seg_dev, bits_dev = core(*(torch.from_numpy(p).to(dev) for p in (y, cb, cr)),
-                             debug_checks=debug_checks)
+    with stage_scope("encode.color"):
+        y, cb, cr = rgb_to_ycbcr_exact(frames)  # host C-double colour, as the reference
+    with stage_scope("encode.tables"):
+        core = CompatCore(quality).to(dev)
+    with stage_scope("encode.h2d"):
+        planes = [torch.from_numpy(p).to(dev) for p in (y, cb, cr)]
+    with stage_scope("encode.enqueue"):
+        seg_dev, bits_dev = core(*planes, debug_checks=debug_checks)
     # two-step fetch: the bit counts first, then only the used byte prefix
-    seg_bits = bits_dev.cpu().numpy()
+    with stage_scope("encode.fetch_bits"):
+        seg_bits = bits_dev.cpu().numpy()
     if int(seg_bits.min(initial=0)) < 0:
         viol = -seg_bits[seg_bits < 0]
         raise RuntimeError(
@@ -127,26 +140,27 @@ def encode_compat(frames_rgb, quality: int = 12, *, device="cuda",
         )
     used = int(seg_bits.max(initial=0) + 7) // 8
     bucket = min(max(256, 1 << (used - 1).bit_length()), MAX_SLICE_BYTES_COMPAT)
-    seg_bytes = seg_dev[:, :, :bucket].cpu().numpy()
+    with stage_scope("encode.fetch_prefix"):
+        seg_bytes = seg_dev[:, :, :bucket].cpu().numpy()
 
     # the system stream of the reference (models/encoder.py::encode_compat)
-    out = bytearray()
-    out += headers.pack_header(2202035)
-    out += headers.system_header(2202035, 0xE6)
-    dumps = []
-    for i in range(bsz):
-        frame = bytearray()
-        frame += headers.pes_packet_header(1 + 3600 * i)
-        frame += headers.sequence_header(w & 0xFF, h & 0xFF)
-        frame += headers.gop_header(hour=i, minute=0, second=0)
-        frame += headers.picture_header(temporal_ref=0)
-        for s in range(N_SLICES):
-            nb = (int(seg_bits[i, s]) + 7) // 8
-            frame += bytes(seg_bytes[i, s, :nb])
-        headers.patch_pes_length(frame)
-        frame += headers.COMPAT_SEQUENCE_END_GARBAGE
-        out += frame
-        dumps.append(
-            headers.raw_plane_dump(w, h, y[i].reshape(-1), cb[i].reshape(-1), cr[i].reshape(-1))
-        )
-    return bytes(out), dumps
+    with stage_scope("encode.assemble"):
+        out = bytearray()
+        out += headers.pack_header(2202035)
+        out += headers.system_header(2202035, 0xE6)
+        dumps = []
+        for i in range(bsz):
+            frame = bytearray()
+            frame += headers.pes_packet_header(1 + 3600 * i)
+            frame += headers.sequence_header(w & 0xFF, h & 0xFF)
+            frame += headers.gop_header(hour=i, minute=0, second=0)
+            frame += headers.picture_header(temporal_ref=0)
+            for s in range(N_SLICES):
+                nb = (int(seg_bits[i, s]) + 7) // 8
+                frame += bytes(seg_bytes[i, s, :nb])
+            headers.patch_pes_length(frame)
+            frame += headers.COMPAT_SEQUENCE_END_GARBAGE
+            out += frame
+            dumps.append(headers.raw_plane_dump(w, h, y[i].reshape(-1), cb[i].reshape(-1),
+                                                cr[i].reshape(-1)))
+        return bytes(out), dumps

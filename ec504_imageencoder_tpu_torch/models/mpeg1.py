@@ -41,6 +41,17 @@ On the CPU the kernels' plain twins run instead.
 The host part is the port's own copy of the reference's: quality to
 quantizer, slice-buffer sizing, macroblock padding, the header builders,
 the regrow loop and `assemble`.
+
+While a profiler records, each call of the encoder runs as a sequence of
+spans on the calling thread (`utils.profiling.stage_scope`), one per stage:
+`encode.pad` (validation and host padding), `encode.h2d` (the copies to
+the device), `encode.intake` (the coefficients intake's IDCT and device
+padding), `encode.enqueue` (the device pipeline's launches; inside it
+`encode.levels` around `plane_levels`), `encode.fetch_bits` (the bit
+counts, where the host waits for the device), `encode.fetch_prefix` (the
+used byte prefix), `encode.assemble` (`assemble`) and `encode.release`
+(the fetched prefix's host buffer freed).  A re-run after an overflow
+adds one `encode.enqueue` and one `encode.fetch_bits`.
 """
 
 from __future__ import annotations
@@ -76,6 +87,7 @@ from ec504_imageencoder_tpu_torch.ops.vlc_device import dc_predictors, slot_viol
 from ec504_imageencoder_tpu_torch.ops.zigzag import zigzag_scan
 from ec504_imageencoder_tpu_torch.syntax import headers
 from ec504_imageencoder_tpu_torch.syntax.bitwriter import BitWriter
+from ec504_imageencoder_tpu_torch.utils.profiling import stage_scope
 from ec504_imageencoder_tpu_torch.utils.tables import ZIGZAG_GATHER, scale_quantization_matrix
 
 SLICE_HEADER_BITS = 38  # slice start code (32) + quantizer_scale (5) + extra_bit (1)
@@ -210,16 +222,18 @@ def plane_levels(y, cb, cr, qw, zigzag, dct_impl: str = "f32"):
     the DCT `dct_impl` ("f32": `matmul_dct`, "aan": `aan_dct`): padded
     planes -> (levels (B * mbh, mbw * 6, 64) int32, zigzag order, slot 0
     the absolute quantized DC; preds (B * mbh, mbw * 6) int32 DC
-    predictors), the input of kernel B3 and of `raw_slots`."""
-    blocks = blockize(y, cb, cr)                       # (B, mbh, mbw, 6, 8, 8)
-    bsz, mbh, mbw = blocks.shape[:3]
-    dct = aan_dct if dct_impl == "aan" else matmul_dct
-    dc, lvl = quantize_intra(dct(blocks), qw)
-    zz = zigzag_scan(lvl, zigzag)
-    lane = torch.arange(64, device=y.device)
-    zz = torch.where(lane == 0, dc[..., None], zz)
-    r = bsz * mbh
-    return zz.reshape(r, mbw * 6, 64), dc_predictors(dc).reshape(r, mbw * 6)
+    predictors), the input of kernel B3 and of `raw_slots`.  Traced as
+    the span `encode.levels`."""
+    with stage_scope("encode.levels"):
+        blocks = blockize(y, cb, cr)                       # (B, mbh, mbw, 6, 8, 8)
+        bsz, mbh, mbw = blocks.shape[:3]
+        dct = aan_dct if dct_impl == "aan" else matmul_dct
+        dc, lvl = quantize_intra(dct(blocks), qw)
+        zz = zigzag_scan(lvl, zigzag)
+        lane = torch.arange(64, device=y.device)
+        zz = torch.where(lane == 0, dc[..., None], zz)
+        r = bsz * mbh
+        return zz.reshape(r, mbw * 6, 64), dc_predictors(dc).reshape(r, mbw * 6)
 
 
 def _check_pack(pack) -> None:
@@ -457,28 +471,32 @@ class TorchMPEG1IntraEncoder:
             self.max_slice_bytes = initial_slice_bytes(self.quality, mbw)
         return self.max_slice_bytes
 
-    def _pipeline_once(self, padded: np.ndarray, msb: int):
-        rgb = torch.from_numpy(padded).to(self.device)
-        return correct_pipeline(self.core, rgb, msb, self.color_range, self.debug_checks)
+    def _to_device(self, arrays):
+        """The padded host arrays -> the device inputs of `_enqueue_rgb`
+        and `_enqueue_planes`: each array copied to the device, once a call
+        (a regrow re-runs on the same copies)."""
+        with stage_scope("encode.h2d"):
+            return tuple(torch.from_numpy(a).to(self.device) for a in arrays)
 
-    def _planes_once(self, planes, msb: int):
-        y, cb, cr = (torch.from_numpy(np.ascontiguousarray(p)).to(self.device)
-                     for p in planes)
-        return correct_pipeline_planes(self.core, y, cb, cr, msb, self.debug_checks)
+    def _enqueue_rgb(self, inputs, msb: int):
+        (rgb,) = inputs
+        with stage_scope("encode.enqueue"):
+            return correct_pipeline(self.core, rgb, msb, self.color_range, self.debug_checks)
 
-    def _run_pipeline(self, padded: np.ndarray):
-        return self._run_with_regrow(
-            lambda msb: self._pipeline_once(padded, msb), padded.shape[2] // 16)
+    def _enqueue_planes(self, inputs, msb: int):
+        with stage_scope("encode.enqueue"):
+            return correct_pipeline_planes(self.core, *inputs, msb, self.debug_checks)
 
     def _run_with_regrow(self, run_once, mbw: int):
-        """Run, fetch the bit counts, raise on a negated one (the
-        violations that debug_checks found), regrow once if a slice
-        overflowed (nbits is exact, so one regrow lands), then fetch only
-        the used byte prefix, bucketed."""
+        """Run (`run_once` enqueues the device pipeline), fetch the bit
+        counts, raise on a negated one (the violations that debug_checks
+        found), regrow once if a slice overflowed (nbits is exact, so one
+        regrow lands), then fetch only the used byte prefix, bucketed."""
         msb = self.resolve_slice_bytes(mbw)
         for _attempt in range(3):
             seg_dev, bits_dev = run_once(msb)
-            bits = bits_dev.cpu().numpy()
+            with stage_scope("encode.fetch_bits"):
+                bits = bits_dev.cpu().numpy()
             if int(bits.min(initial=0)) < 0:
                 viol = -bits[bits < 0]
                 raise RuntimeError(
@@ -501,7 +519,21 @@ class TorchMPEG1IntraEncoder:
             raise OverflowError(f"slice-buffer regrow did not converge at {msb} bytes")
         used = -(-need_bits // 8)
         bucket = min(max(256, 1 << max(used - 1, 1).bit_length()), msb)
-        return seg_dev[:, :, :bucket].cpu().numpy(), bits
+        with stage_scope("encode.fetch_prefix"):
+            return seg_dev[:, :, :bucket].cpu().numpy(), bits
+
+    def _run_and_assemble(self, run_once, mbw: int, disp_w: int, disp_h: int,
+                          first_frame_index: int) -> bytes:
+        """`_run_with_regrow`, then `assemble` of what it fetched.  The
+        fetched prefix's host buffer is freed in a span of its own:
+        unmapping tens of MB takes milliseconds."""
+        seg, bits = self._run_with_regrow(run_once, mbw)
+        self._record(bits, mbw)
+        with stage_scope("encode.assemble"):
+            stream = self.assemble(seg, bits, disp_w, disp_h, first_frame_index)
+        with stage_scope("encode.release"):
+            del seg
+        return stream
 
     def _record(self, bits, mbw: int) -> None:
         if self.metrics is not None:
@@ -514,20 +546,21 @@ class TorchMPEG1IntraEncoder:
 
         first_frame_index keeps GOP boundaries and timecodes consistent
         across chunked encodes; callers append `headers.sequence_end()`."""
-        frames = np.ascontiguousarray(frames_rgb)
-        if frames.ndim != 4 or frames.shape[-1] != 3 or frames.dtype != np.uint8:
-            raise ValueError(f"expected (B,H,W,3) uint8, got {frames.shape} {frames.dtype}")
-        disp_h, disp_w = frames.shape[1:3]
-        if disp_w > MAX_WIDTH or disp_h > MAX_HEIGHT:
-            raise ValueError(
-                f"frame {disp_w}x{disp_h} exceeds MPEG-1 limits "
-                f"({MAX_WIDTH}x{MAX_HEIGHT}: 12-bit sequence-header "
-                "dimensions, slice start codes 0x01..0xAF)"
-            )
-        padded = pad_to_macroblocks(frames)
-        seg, bits = self._run_pipeline(padded)
-        self._record(bits, padded.shape[2] // 16)
-        return self.assemble(seg, bits, disp_w, disp_h, first_frame_index)
+        with stage_scope("encode.pad"):
+            frames = np.ascontiguousarray(frames_rgb)
+            if frames.ndim != 4 or frames.shape[-1] != 3 or frames.dtype != np.uint8:
+                raise ValueError(f"expected (B,H,W,3) uint8, got {frames.shape} {frames.dtype}")
+            disp_h, disp_w = frames.shape[1:3]
+            if disp_w > MAX_WIDTH or disp_h > MAX_HEIGHT:
+                raise ValueError(
+                    f"frame {disp_w}x{disp_h} exceeds MPEG-1 limits "
+                    f"({MAX_WIDTH}x{MAX_HEIGHT}: 12-bit sequence-header "
+                    "dimensions, slice start codes 0x01..0xAF)"
+                )
+            padded = pad_to_macroblocks(frames)
+        inputs = self._to_device((padded,))
+        return self._run_and_assemble(lambda msb: self._enqueue_rgb(inputs, msb),
+                                      padded.shape[2] // 16, disp_w, disp_h, first_frame_index)
 
     def assemble(self, seg, bits, disp_w: int, disp_h: int,
                  first_frame_index: int = 0) -> bytes:
@@ -558,26 +591,26 @@ class TorchMPEG1IntraEncoder:
     def encode_from_planes(self, y, cb, cr, first_frame_index: int = 0) -> bytes:
         """Encode 4:2:0 YCbCr planes directly: y (B, H, W) u8, cb/cr
         (B, ceil(H/2), ceil(W/2)) u8 -> MPEG-1 video ES bytes."""
-        y = np.ascontiguousarray(y)
-        cb = np.ascontiguousarray(cb)
-        cr = np.ascontiguousarray(cr)
-        if y.ndim != 3 or y.dtype != np.uint8:
-            raise ValueError(f"expected (B,H,W) uint8 Y, got {y.shape} {y.dtype}")
-        disp_h, disp_w = y.shape[1:3]
-        exp = (y.shape[0], -(-disp_h // 2), -(-disp_w // 2))
-        if cb.shape != exp or cr.shape != exp:
-            raise ValueError(f"chroma planes must be {exp}, got {cb.shape}/{cr.shape}")
-        if cb.dtype != np.uint8 or cr.dtype != np.uint8:
-            raise ValueError(f"expected uint8 chroma planes, got {cb.dtype}/{cr.dtype}")
-        if disp_w > MAX_WIDTH or disp_h > MAX_HEIGHT:
-            raise ValueError(
-                f"frame {disp_w}x{disp_h} exceeds MPEG-1 limits ({MAX_WIDTH}x{MAX_HEIGHT})"
-            )
-        planes = pad_planes_to_macroblocks(y, cb, cr)
-        mbw = planes[0].shape[2] // 16
-        seg, bits = self._run_with_regrow(lambda msb: self._planes_once(planes, msb), mbw)
-        self._record(bits, mbw)
-        return self.assemble(seg, bits, disp_w, disp_h, first_frame_index)
+        with stage_scope("encode.pad"):
+            y = np.ascontiguousarray(y)
+            cb = np.ascontiguousarray(cb)
+            cr = np.ascontiguousarray(cr)
+            if y.ndim != 3 or y.dtype != np.uint8:
+                raise ValueError(f"expected (B,H,W) uint8 Y, got {y.shape} {y.dtype}")
+            disp_h, disp_w = y.shape[1:3]
+            exp = (y.shape[0], -(-disp_h // 2), -(-disp_w // 2))
+            if cb.shape != exp or cr.shape != exp:
+                raise ValueError(f"chroma planes must be {exp}, got {cb.shape}/{cr.shape}")
+            if cb.dtype != np.uint8 or cr.dtype != np.uint8:
+                raise ValueError(f"expected uint8 chroma planes, got {cb.dtype}/{cr.dtype}")
+            if disp_w > MAX_WIDTH or disp_h > MAX_HEIGHT:
+                raise ValueError(
+                    f"frame {disp_w}x{disp_h} exceeds MPEG-1 limits ({MAX_WIDTH}x{MAX_HEIGHT})"
+                )
+            planes = pad_planes_to_macroblocks(y, cb, cr)
+        inputs = self._to_device(planes)
+        return self._run_and_assemble(lambda msb: self._enqueue_planes(inputs, msb),
+                                      planes[0].shape[2] // 16, disp_w, disp_h, first_frame_index)
 
     def encode_to_file(self, frames_rgb: np.ndarray, path: str) -> int:
         data = self.encode(frames_rgb) + headers.sequence_end()
@@ -601,23 +634,25 @@ class TorchMPEG1IntraEncoder:
         macroblock padding and the whole encode run on the device.  Like the
         reference's planes intakes it stores the JPEG's full-range YCbCr as
         it is (the rgb intake stores studio range)."""
-        ch, cw = -(-height // 2), -(-width // 2)
-        exp_y = (-(-height // 8) * -(-width // 8), 64)
-        exp_c = (-(-ch // 8) * -(-cw // 8), 64)
-        for name, arr, exp in (("Y", yc, exp_y), ("Cb", cbc, exp_c), ("Cr", crc, exp_c)):
-            if arr.ndim != 3 or tuple(arr.shape[1:]) != exp:
+        with stage_scope("encode.pad"):
+            ch, cw = -(-height // 2), -(-width // 2)
+            exp_y = (-(-height // 8) * -(-width // 8), 64)
+            exp_c = (-(-ch // 8) * -(-cw // 8), 64)
+            for name, arr, exp in (("Y", yc, exp_y), ("Cb", cbc, exp_c), ("Cr", crc, exp_c)):
+                if arr.ndim != 3 or tuple(arr.shape[1:]) != exp:
+                    raise ValueError(
+                        f"{name} coefficients must be (B, {exp[0]}, 64) for "
+                        f"{width}x{height} 4:2:0, got {tuple(arr.shape)}"
+                    )
+            if width > MAX_WIDTH or height > MAX_HEIGHT:
                 raise ValueError(
-                    f"{name} coefficients must be (B, {exp[0]}, 64) for "
-                    f"{width}x{height} 4:2:0, got {tuple(arr.shape)}"
+                    f"frame {width}x{height} exceeds MPEG-1 limits ({MAX_WIDTH}x{MAX_HEIGHT})"
                 )
-        if width > MAX_WIDTH or height > MAX_HEIGHT:
-            raise ValueError(
-                f"frame {width}x{height} exceeds MPEG-1 limits ({MAX_WIDTH}x{MAX_HEIGHT})"
-            )
-        y, cb, cr = coeffs_to_planes(*(self._coeffs_to_device(a) for a in (yc, cbc, crc)),
-                                     height, width)
-        mbw = y.shape[2] // 16
-        seg, bits = self._run_with_regrow(
-            lambda msb: correct_pipeline_planes(self.core, y, cb, cr, msb, self.debug_checks), mbw)
-        self._record(bits, mbw)
-        return self.assemble(seg, bits, width, height, first_frame_index)
+        with stage_scope("encode.h2d"):
+            coeffs = [self._coeffs_to_device(a) for a in (yc, cbc, crc)]
+        with stage_scope("encode.intake"):
+            y, cb, cr = coeffs_to_planes(*coeffs, height, width)
+        del coeffs  # the int32 coefficients are not held through the encode
+        return self._run_and_assemble(
+            lambda msb: self._enqueue_planes((y, cb, cr), msb),
+            y.shape[2] // 16, width, height, first_frame_index)

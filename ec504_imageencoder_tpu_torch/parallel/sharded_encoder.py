@@ -13,9 +13,12 @@ where GSPMD partitions one jitted program.  Here the split is explicit:
 * one `EncodeCore` per distinct device of the mesh, built with the
   quantizer (a device appearing several times runs its shards one after
   another on its current stream);
-* each shard's slab is made contiguous on the host, copied to its device
-  and encoded there, its slice headers numbered from its first MB row;
-  every shard is launched before the host fetches anything;
+* the shards' slabs are made contiguous on the host (a second span
+  `encode.pad`); then each shard's slab is copied to its device
+  (`encode.h2d`) and launched there at once (`encode.enqueue`), its
+  slice headers numbered from its first MB row, so a card runs its shard
+  while the host copies the next; the host fetches nothing before every
+  shard is launched, and a regrow re-runs on the same copies;
 * the batch splits unevenly over `data` (`mesh.split_batch`, as
   `torch.tensor_split`): the reference pads the batch with copies of its
   last frame because GSPMD needs an even split; the bytes are the same.
@@ -33,6 +36,7 @@ from ec504_imageencoder_tpu_torch.models.mpeg1 import (
     correct_pipeline_planes,
 )
 from ec504_imageencoder_tpu_torch.parallel import mesh as mesh_lib
+from ec504_imageencoder_tpu_torch.utils.profiling import stage_scope
 
 
 class ShardedTorchMPEG1Encoder(TorchMPEG1IntraEncoder):
@@ -67,28 +71,42 @@ class ShardedTorchMPEG1Encoder(TorchMPEG1IntraEncoder):
             )
         return n_data, n_rows
 
-    def _run_shards(self, arrays, run):
-        """Launch `run(core, first_row, *device slabs)` on every shard of the
-        host arrays, then wrap the outputs for the host gather."""
+    def _to_device(self, arrays):
+        """The host arrays cut into shards: a grid [i][j] of [device, first
+        MB row, slabs], as `mesh_lib.shard_host` lays it out.  The slabs
+        are host arrays until `_run_shards` first launches their shard."""
         mbh = arrays[0].shape[1] // 16
         self._check_divisible(mbh)
+        with stage_scope("encode.pad"):
+            return [[list(shard) for shard in row]
+                    for row in mesh_lib.shard_host(arrays, self.mesh, mbh)]
+
+    def _run_shards(self, shards, run):
+        """Launch `run(core, first_row, *device slabs)` on every shard of the
+        grid, each copied to its device just before its first launch and
+        kept there for a regrow, then wrap the outputs for the host
+        gather."""
         segs, bits = [], []
-        for row in mesh_lib.shard_host(arrays, self.mesh, mbh):
+        for row in shards:
             segs.append([])
             bits.append([])
-            for dev, first_row, slabs in row:
-                seg, nb = run(self.cores[dev], first_row,
-                              *(torch.from_numpy(s).to(dev) for s in slabs))
+            for shard in row:
+                dev, first_row, slabs = shard
+                if isinstance(slabs[0], np.ndarray):
+                    with stage_scope("encode.h2d"):
+                        slabs = shard[2] = [torch.from_numpy(s).to(dev) for s in slabs]
+                with stage_scope("encode.enqueue"):
+                    seg, nb = run(self.cores[dev], first_row, *slabs)
                 segs[-1].append(seg)
                 bits[-1].append(nb)
         return mesh_lib.ShardedTensor(segs), mesh_lib.ShardedTensor(bits)
 
-    def _pipeline_once(self, padded: np.ndarray, msb: int):
-        return self._run_shards((padded,), lambda core, first_row, rgb: correct_pipeline(
+    def _enqueue_rgb(self, shards, msb: int):
+        return self._run_shards(shards, lambda core, first_row, rgb: correct_pipeline(
             core, rgb, msb, self.color_range, self.debug_checks, first_row))
 
-    def _planes_once(self, planes, msb: int):
-        return self._run_shards(tuple(planes), lambda core, first_row, y, cb, cr:
+    def _enqueue_planes(self, shards, msb: int):
+        return self._run_shards(shards, lambda core, first_row, y, cb, cr:
                                 correct_pipeline_planes(core, y, cb, cr, msb,
                                                         self.debug_checks, first_row))
 

@@ -4,16 +4,17 @@ The port's counterpart of the JAX package's `utils/profiling.py`
 (`jax.profiler`): `device_trace` records the host's operations and, where
 a CUDA card is present, the card's kernels and copies, and writes them as
 a Chrome trace (open in Perfetto or chrome://tracing); `stage_scope`
-names a span in it; `WallTimer` is a plain copy.  Every CUDA kernel
-launch of the port runs inside a `stage_scope` named after its C entry
-point (`ops/_build.load`).
+names a span in it, on the profiler's clock.  Every CUDA kernel launch of
+the port runs inside a `stage_scope` named after its C entry point
+(`ops/_build.load`), and every encode call runs as a sequence of
+`encode.*` spans, one per stage (`models/mpeg1.py`, `models/encoder.py`).  The
+JAX package's `WallTimer` has no copy here: the spans time the stages.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
 
 import torch
 from torch.autograd import _profiler_enabled
@@ -34,23 +35,6 @@ def device_trace(logdir: str):
 
 
 def stage_scope(name: str):
-    """Named span for a pipeline stage; a no-op outside tracing."""
+    """Named span for a pipeline stage while a profiler records; outside
+    one, a `nullcontext`, and nothing else is built."""
     return record_function(name) if _profiler_enabled() else contextlib.nullcontext()
-
-
-class WallTimer:
-    """Accumulating wall-clock stage timer for host-side reporting."""
-
-    def __init__(self) -> None:
-        self.times: dict[str, float] = {}
-
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.times[name] = self.times.get(name, 0.0) + time.perf_counter() - t0
-
-    def report(self) -> dict[str, float]:
-        return dict(self.times)

@@ -115,6 +115,13 @@ COUNTERPARTS = {
         "models/encoder.py", "CompatCore", "the compat device pipeline"),
     ("models/encoder.py", "compat_blockize_px64"): (
         "ops/cuda_vlc_compat.py", "compat_blockize", "the compat crop blockize"),
+    # the wall-clock stage timer -> spans on the profiler's clock
+    ("utils/profiling.py", "WallTimer"): (
+        "utils/profiling.py", "stage_scope", "a stage's time: its span in the trace"),
+    ("utils/profiling.py", "WallTimer.stage"): (
+        "utils/profiling.py", "stage_scope", "one named stage, timed by the profiler"),
+    ("utils/profiling.py", "WallTimer.report"): (
+        "utils/profiling.py", "device_trace", "the trace holds every stage's times"),
 }
 
 
