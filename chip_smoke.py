@@ -50,7 +50,10 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    (16 copies of the golden sequence), and at q=12 and q=100 on 1 golden
    frame, 30 noise frames of odd width, 30 flat and checkerboard frames
    and 2 noise frames each of widths 601, 602 and 610 (rows read as bytes)
-   (the last group of 128 blocks holds 68, 120, 8 or all): exact;
+   (the last group of 128 blocks holds 68, 120, 8 or all): exact; the
+   compat colour kernel (compat_color) against the host f64 colour
+   (rgb_to_ycbcr_exact) on the 30 golden frames, the 480 frames and 30
+   noise frames of 150 x 101 (the scalar path): exact;
 8. the q=85 path (f32 DCT): encode() and encode_from_planes() on the 16 x
    1080p frames byte-equal to the CPU path; the same bytes for 16 frames
    at once, 2 x 8 and 16 x 1 (first_frame_index), and with TF32 matmuls
@@ -59,9 +62,12 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
 9. compat mode: encode_compat(device="cuda") equals the golden stream and
    .bit dump md5s on the 30 golden frames, also with debug_checks (raw
    slots through B4a, then B2's checked form), and equals the CPU path's
-   encode_compat on the 480 frames; the B4b and B4a launch counts went up;
+   encode_compat on the 480 frames; the B4b and B4a launch counts went up,
+   and the colour kernel's by one a call;
 10. times: B3, B4b and B4a against their twins (B4b and B4a also as
-   the profiler's device time, beside their bound), q=85
+   the profiler's device time, beside their bound), the compat colour at
+   30 and 480 frames of 400 x 600 (events and device time, beside its
+   bytes bound; its twin at 30 frames), q=85
    encode()/encode_from_planes() and compat encode_compat() in frames/s;
 11. kernel B6a (vlc_raw, the sanitizer's raw slots) against its twin on
    phase 2's planes (16 x 1080p, the 1000 x 1400 noise padded to 1408,
@@ -554,7 +560,7 @@ def _entry_points(work: Path, tag: str, reset_launches, read_launches):
     rc = mpeg_encode_procedure(str(small), str(work / "bits_card"), str(work / "card.mpeg"), 12)
     compat_s = time.perf_counter() - t0
     _check_launches(f"mpeg_encode_procedure, {ENTRY_COMPAT_FRAMES} frames", read_launches(),
-                    ("vlc_compat_fused4", "pack_fused4"), ("vlc_compat_slots",))
+                    ("compat_color", "vlc_compat_fused4", "pack_fused4"), ("vlc_compat_slots",))
     t0 = time.perf_counter()
     rc_cpu = mpeg_encode_procedure(str(small), str(work / "bits_cpu"), str(work / "cpu.mpeg"),
                                    12, device="cpu")
@@ -577,7 +583,8 @@ def _entry_points(work: Path, tag: str, reset_launches, read_launches):
     _cli([small, "-o", work / "dbg.mpeg", "--mode", "compat", "--debug-checks",
           "--bitstream-dir", work / "bits_dbg"])
     _check_launches("CLI --mode compat --debug-checks", read_launches(),
-                    ("vlc_compat_slots", "pack_fused4_checked"), ("vlc_compat_fused4",))
+                    ("compat_color", "vlc_compat_slots", "pack_fused4_checked"),
+                    ("vlc_compat_fused4",))
     _check_equal("CLI --mode compat --debug-checks", (work / "dbg.mpeg").read_bytes(), want)
     md5s = [_dumps(work / d) for d in ("bits_card", "bits_cpu", "bits_shim", "bits_dbg")]
     print(f".bit dumps: {len(md5s[1])} each, card, shim and debug-checks equal to the CPU's "
@@ -772,6 +779,7 @@ def main() -> int:
     def reset_launches():
         cuda_vlc.launches = cuda_pack.launches = cuda_vlc_levels.launches = 0
         cuda_vlc_compat.launches_slots = cuda_vlc_compat.launches_fused4 = 0
+        cuda_vlc_compat.launches_color = 0
         cuda_vlc_raw.launches = cuda_lut.launches = cuda_pack.launches_checked = 0
         cuda_vlc.launches8 = cuda_pack.launches8 = 0
         cuda_pack.launches_raw = cuda_pack.launches_pairs = 0
@@ -782,6 +790,7 @@ def main() -> int:
                 "vlc_levels4": cuda_vlc_levels.launches,
                 "vlc_compat_slots": cuda_vlc_compat.launches_slots,
                 "vlc_compat_fused4": cuda_vlc_compat.launches_fused4,
+                "compat_color": cuda_vlc_compat.launches_color,
                 "vlc_raw": cuda_vlc_raw.launches, "lut_lookup": cuda_lut.launches,
                 "pack_fused4_checked": cuda_pack.launches_checked,
                 "vlc_fused8": cuda_vlc.launches8, "pack_fused8": cuda_pack.launches8,
@@ -917,8 +926,8 @@ def main() -> int:
     launches = read_launches()
     _check_launches(f"q={QUALITY} path (encode + encode_from_planes + regrow encode, "
                     f"{main_s:.2f} s)", launches, ("vlc_fused4", "pack_fused4"),
-                    ("vlc_levels4", "vlc_compat_slots", "vlc_compat_fused4", *sanitizer_kernels,
-                     *fuse8_kernels, *raw_pack_kernels))
+                    ("vlc_levels4", "vlc_compat_slots", "vlc_compat_fused4", "compat_color",
+                     *sanitizer_kernels, *fuse8_kernels, *raw_pack_kernels))
     if regrow.max_slice_bytes <= 2560:
         raise AssertionError("the forced-regrow run did not regrow")
     print(f"regrow: 2560 B -> {regrow.max_slice_bytes} B per slice")
@@ -1008,6 +1017,24 @@ def main() -> int:
     compat_planes = {}
     for name, fr in (("30 golden frames", gold_frames), (f"{len(compat_frames)} frames", compat_frames)):
         compat_planes[name] = tuple(torch.from_numpy(p).to(dev) for p in rgb_to_ycbcr_exact(fr))
+    # the compat colour kernel against the host f64 colour: the wide path
+    # on the 400 x 600 frames, the scalar path at 150 x 101
+    color_err = 0
+    noise_rgb = np.random.default_rng(SEED + 6).integers(0, 256, (30, 150, 101, 3), dtype=np.uint8)
+    for name, fr in (("30 golden frames", gold_frames),
+                     (f"{len(compat_frames)} frames", compat_frames),
+                     ("30 noise frames 150x101", noise_rgb)):
+        want = (compat_planes[name] if name in compat_planes else
+                tuple(torch.from_numpy(p).to(dev) for p in rgb_to_ycbcr_exact(fr)))
+        got = cuda_vlc_compat.compat_color(torch.from_numpy(fr).to(dev))
+        torch.cuda.synchronize()
+        err = _max_abs_err(torch, tuple(got), want)
+        print(f"compat_color vs rgb_to_ycbcr_exact, {name}: planes {tuple(got.shape)}, "
+              f"max_abs_err {err}")
+        if err != 0:
+            raise AssertionError(f"compat_color disagrees with the host colour on {name}")
+        color_err = max(color_err, err)
+    del noise_rgb, want, got
     # B4b's flat groups of 128 blocks (324 a frame): 1 frame leaves a last
     # group of 68, 30 frames one of 120, 480 none; at q=12 and q=100
     # (escapes), on 1 golden frame, 30 noise frames of odd width 101, and
@@ -1100,15 +1127,17 @@ def main() -> int:
     compat_s = time.perf_counter() - t0
     compat_launches = read_launches()
     _check_launches(f"compat path (30 + {len(compat_frames)} frames, {compat_s:.2f} s)",
-                    compat_launches, ("vlc_compat_fused4", "pack_fused4"),
+                    compat_launches, ("compat_color", "vlc_compat_fused4", "pack_fused4"),
                     ("vlc_compat_slots", "vlc_fused4", "vlc_levels4", *sanitizer_kernels,
                      *fuse8_kernels))
     reset_launches()
     c_debug, _ = encode_compat(gold_frames, COMPAT_QUALITY, device=dev, debug_checks=True)
     debug_launches = read_launches()
     _check_launches("compat path with debug_checks (30 frames)", debug_launches,
-                    ("vlc_compat_slots", "pack_fused4_checked"),
+                    ("compat_color", "vlc_compat_slots", "pack_fused4_checked"),
                     ("vlc_compat_fused4", "pack_fused4"))
+    if (compat_launches["compat_color"], debug_launches["compat_color"]) != (2, 1):
+        raise AssertionError("the compat colour did not launch once a call")
 
     md5_ok = all(hashlib.md5(d).hexdigest() == gold_md5[f"image_{i + 1}.bit"]
                  for i, d in enumerate(c_dumps))
@@ -1164,6 +1193,23 @@ def main() -> int:
     ):
         fps, ms = _frames_per_s(torch, fn, n, 3)
         print(f"{label}: {fps:.2f} frames/s ({ms:.2f} ms per call) {tag}")
+    # the compat colour: 3 B of RGB read and 3 B of planes written a pixel;
+    # the kernels table's row at the cell's 30 frames, its twin on the card
+    for fr in (gold_frames, compat_frames):
+        rgb_dev = torch.from_numpy(fr).to(dev)
+        px = rgb_dev.numel() // 3
+        kernel_ms = _event_ms(torch, lambda: cuda_vlc_compat.compat_color(rgb_dev), 20)
+        if len(fr) == len(gold_frames):
+            times["compat_color"] = (kernel_ms, _event_ms(
+                torch, lambda: cuda_vlc_compat.compat_color_plain(rgb_dev), 3))
+            work["compat_color"] = (6 * px, 0)
+        print(f"compat_color at {len(fr)} x 400x600: events {kernel_ms:.4f} ms, device time "
+              f"(profiler records) "
+              f"{_device_ms(torch, lambda: cuda_vlc_compat.compat_color(rgb_dev), 20)}, bound "
+              f"{_bound(6 * px, 0)[0]:.4f} ms (bytes, {6 * px / 1e6:.1f} MB) {tag}")
+        del rgb_dev
+    print(f"compat_color's plain twin at 30 x 400x600 on the card: "
+          f"{times['compat_color'][1]:.4f} ms {tag}")
     del big, compat_planes
 
     # ---- 11. B6a against its twin ----------------------------------------
@@ -1405,7 +1451,7 @@ def main() -> int:
     _check_launches(f"q={QUALITY} fuse=8 path (encode + encode_from_planes + regrow encode, "
                     f"{f8_s:.2f} s)", f8_launches, fuse8_kernels,
                     ("vlc_fused4", "pack_fused4", "vlc_levels4", "vlc_compat_slots",
-                     "vlc_compat_fused4", *sanitizer_kernels, *raw_pack_kernels))
+                     "vlc_compat_fused4", "compat_color", *sanitizer_kernels, *raw_pack_kernels))
     if regrow8.max_slice_bytes <= 2560:
         raise AssertionError("the fuse=8 forced-regrow run did not regrow")
     print(f"fuse=8 regrow: 2560 B -> {regrow8.max_slice_bytes} B per slice")
@@ -1549,7 +1595,7 @@ def main() -> int:
     # ---- 20. the generic route: pack= ------------------------------------
     route_counts = {}
     others = ("vlc_fused4", "pack_fused4", "vlc_levels4", "vlc_raw", "pack_fused4_checked",
-              "vlc_compat_slots", "vlc_compat_fused4", *fuse8_kernels)
+              "vlc_compat_slots", "vlc_compat_fused4", "compat_color", *fuse8_kernels)
     for pack, (name, _, _) in raw_packs.items():
         reset_launches()
         t0 = time.perf_counter()
@@ -1977,6 +2023,9 @@ def main() -> int:
          debug_launches, b4a_err),
         ("vlc_compat_fused4", "vlc_compat.cu", "ec504_imageencoder_tpu/ops/pallas_vlc.py:859",
          compat_launches, b4b_err),
+        ("compat_color", "vlc_compat.cu",
+         "none: the reference's host numpy ops/color.py::rgb_to_ycbcr_exact",
+         compat_launches, color_err),
         ("vlc_raw", "vlc_fused4.cu", "ec504_imageencoder_tpu/ops/pallas_vlc.py:468",
          debug_counts[QUALITY], b6a_err),
         ("lut_lookup", "lut_lookup.cu", "ec504_imageencoder_tpu/ops/mxu_lut.py:249",

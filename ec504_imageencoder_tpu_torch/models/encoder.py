@@ -3,21 +3,23 @@ for bug.
 
 The port of the reference's `models/encoder.py::encode_compat` (the C
 project's `mpeg_encode_procedure` minus file I/O), with its own copies of
-the reference's crop and slice constants and `_validate_frames`: the
-host f64 colour (`rgb_to_ycbcr_exact`, which the `.bit` dumps also need),
-the full-resolution planes to the device, kernel B4b (crop blockize, AAN
-DCT, truncating quantization, zigzag, compat emission, 4:1 fusion),
-kernel B2 (38 bits in, 12,288 B per slice: the worst-case compat slice is
-12,026 B, so a slice never overflows), the slice headers (vpos 1..6,
-qscale 1), then the reference's two-step fetch and system-stream
-assembly.  On the CPU the kernels' plain twins run instead.
+the reference's crop and slice constants and `_validate_frames`: the RGB
+frames to the device, the compat colour there (`compat_color`: the
+reference's host f64 `rgb_to_ycbcr_exact`, operation for operation), kernel
+B4b (crop blockize, AAN DCT, truncating quantization, zigzag, compat
+emission, 4:1 fusion), kernel B2 (38 bits in, 12,288 B per slice: the
+worst-case compat slice is 12,026 B, so a slice never overflows), the
+slice headers (vpos 1..6, qscale 1), then the reference's two-step fetch,
+the planes fetched for the `.bit` dumps, and system-stream assembly.  On
+the CPU the kernels' plain twins run instead.
 
 While a profiler records, a call runs as a sequence of spans on the
-calling thread (`utils.profiling.stage_scope`): `encode.color` (the host
-colour), `encode.tables` (the core's tables built and copied),
-`encode.h2d`, `encode.enqueue`, `encode.fetch_bits`, `encode.fetch_prefix`
-(as in `models/mpeg1.py`) and `encode.assemble` (the system stream and
-the `.bit` dumps).
+calling thread (`utils.profiling.stage_scope`): `encode.h2d` (the RGB
+frames copied), `encode.color` (the colour launched), `encode.tables` (the
+core's tables built and copied), `encode.enqueue`, `encode.fetch_bits`,
+`encode.fetch_prefix` (as in `models/mpeg1.py`), `encode.fetch_planes`
+(the planes copied back for the dumps) and `encode.assemble` (the system
+stream and the `.bit` dumps).
 """
 
 from __future__ import annotations
@@ -29,7 +31,6 @@ from torch import nn
 from ec504_imageencoder_tpu_torch.device import resolve_device
 from ec504_imageencoder_tpu_torch.models.mpeg1 import SLICE_HEADER_BITS
 from ec504_imageencoder_tpu_torch.ops.bitpack import fuse4, or_slice_headers
-from ec504_imageencoder_tpu_torch.ops.color import rgb_to_ycbcr_exact
 from ec504_imageencoder_tpu_torch.ops.cuda_pack import pack_fused4
 from ec504_imageencoder_tpu_torch.ops.cuda_vlc import Luts, to_i32_bits
 from ec504_imageencoder_tpu_torch.ops.cuda_vlc_compat import (  # noqa: F401 (re-exported)
@@ -37,6 +38,7 @@ from ec504_imageencoder_tpu_torch.ops.cuda_vlc_compat import (  # noqa: F401 (re
     CROP_W,
     N_MBS,
     N_SLICES,
+    compat_color,
     vlc_compat_fused4,
     vlc_compat_slots,
 )
@@ -121,12 +123,12 @@ def encode_compat(frames_rgb, quality: int = 12, *, device="cuda",
     bsz, h, w = frames.shape[:3]
     dev = resolve_device(device)
 
+    with stage_scope("encode.h2d"):
+        rgb = torch.from_numpy(frames).to(dev)
     with stage_scope("encode.color"):
-        y, cb, cr = rgb_to_ycbcr_exact(frames)  # host C-double colour, as the reference
+        planes = compat_color(rgb)  # the reference's C-double colour, on the device
     with stage_scope("encode.tables"):
         core = CompatCore(quality).to(dev)
-    with stage_scope("encode.h2d"):
-        planes = [torch.from_numpy(p).to(dev) for p in (y, cb, cr)]
     with stage_scope("encode.enqueue"):
         seg_dev, bits_dev = core(*planes, debug_checks=debug_checks)
     # two-step fetch: the bit counts first, then only the used byte prefix
@@ -142,6 +144,8 @@ def encode_compat(frames_rgb, quality: int = 12, *, device="cuda",
     bucket = min(max(256, 1 << (used - 1).bit_length()), MAX_SLICE_BYTES_COMPAT)
     with stage_scope("encode.fetch_prefix"):
         seg_bytes = seg_dev[:, :, :bucket].cpu().numpy()
+    with stage_scope("encode.fetch_planes"):
+        y, cb, cr = planes.cpu().numpy()  # the .bit dumps hold every pixel
 
     # the system stream of the reference (models/encoder.py::encode_compat)
     with stage_scope("encode.assemble"):

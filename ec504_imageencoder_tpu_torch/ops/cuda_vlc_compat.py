@@ -1,7 +1,8 @@
-"""Kernels B4a/B4b: compat-mode planes -> VLC slots, bug for bug.
+"""Kernels B4a/B4b: compat-mode planes -> VLC slots, bug for bug; and the
+compat colour that makes those planes.
 
-One CUDA source (`csrc/vlc_compat.cu`) with two entry points replaces the
-Pallas kernels of `ec504_imageencoder_tpu/ops/pallas_vlc.py`:
+One CUDA source (`csrc/vlc_compat.cu`) with three entry points.  Two
+replace the Pallas kernels of `ec504_imageencoder_tpu/ops/pallas_vlc.py`:
 
 * `vlc_compat_slots` (B4a) replaces `_vlc_compat_kernel`
   (`vlc_compat_slots_from_blocks_tpu`): raw (code, len) slots;
@@ -18,6 +19,11 @@ one-hot lookup reads the ISO AC table, so at (run 16, |level| 2) they
 emit 16 bits where the reference C encoder (and the reference's numpy
 path, and the golden stream) emits its 15-bit typo; the port follows the
 reference C encoder.
+
+The third, `compat_color`, replaces no Pallas kernel: the reference's
+compat colour is host numpy f64 (`ops/color.py::rgb_to_ycbcr_exact`).
+The kernel and its plain twin repeat that arithmetic operation for
+operation, so the planes are the same bytes.
 
 Each wrapper runs the twin for CPU tensors and the kernel for CUDA
 tensors; there is no other route.
@@ -41,6 +47,7 @@ from ec504_imageencoder_tpu_torch.ops.zigzag import zigzag_scan
 # tensors excluded)
 launches_slots = 0
 launches_fused4 = 0
+launches_color = 0
 
 # the compat geometry (the reference's models/encoder.py, which the port's
 # models/encoder.py re-exports): the C encoder encodes a 96-column x
@@ -57,6 +64,7 @@ _COMMON = [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P]
 _ARGTYPES = {
     "vlc_compat_slots_launch": [*_COMMON, _P, _P, _I, _P],
     "vlc_compat_fused4_launch": [*_COMMON, _P, _P, _P, _P, _P, _I, _P],
+    "compat_color_launch": [_P, ctypes.c_longlong, _P, _I, _P],
 }
 
 
@@ -185,3 +193,38 @@ def vlc_compat_fused4(y, cb, cr, scaled_q, luts: Luts):
     _launch("vlc_compat_fused4_launch", y, cb, cr, scaled_q, luts, out.unbind(0))
     launches_fused4 += 1
     return tuple(out.unbind(0))
+
+
+def compat_color_plain(rgb: torch.Tensor) -> torch.Tensor:
+    """Plain twin of the compat colour: `rgb_to_ycbcr_exact`'s f64
+    operations in numpy's order, each its own rounded torch op."""
+    r, g, b = rgb.to(torch.float64).unbind(-1)
+    y = (0.299 * r + 0.587 * g) + 0.114 * b
+    cb = ((128.0 - 0.168736 * r) - 0.331264 * g) + 0.5 * b
+    cr = ((128.0 + 0.5 * r) - 0.418688 * g) - 0.081312 * b
+    return torch.stack([y, cb, cr]).to(torch.uint8)
+
+
+def compat_color(rgb: torch.Tensor) -> torch.Tensor:
+    """The compat colour.  rgb: (B, H, W, 3) u8 frames, contiguous ->
+    (3, B, H, W) u8, one buffer that unpacks into the Y, Cb and Cr plane
+    views, byte-equal to `rgb_to_ycbcr_exact`'s planes."""
+    global launches_color
+    if rgb.dim() != 4 or rgb.shape[-1] != 3:
+        raise ValueError(f"expected (B, H, W, 3) frames, got {tuple(rgb.shape)}")
+    if rgb.dtype != torch.uint8:
+        raise TypeError(f"frames must be uint8, got {rgb.dtype}")
+    if rgb.device.type == "cpu":
+        return compat_color_plain(rgb)
+    if rgb.device.type != "cuda":
+        raise ValueError(f"unsupported device {rgb.device}")
+    if not rgb.is_contiguous():
+        raise ValueError("compat_color_launch needs contiguous frames")
+    out = torch.empty((3, *rgb.shape[:3]), dtype=torch.uint8, device=rgb.device)
+    lib = load_kernel()
+    err = lib.compat_color_launch(rgb.data_ptr(), out[0].numel(), out.data_ptr(),
+                                  rgb.device.index,
+                                  torch.cuda.current_stream(rgb.device).cuda_stream)
+    _build.check(lib, "vlc_compat", err)
+    launches_color += 1
+    return out

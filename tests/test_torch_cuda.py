@@ -286,11 +286,13 @@ def test_high_quality_and_compat_encoders(cuda, tmp_path):
 
     frames = rng.integers(0, 256, (3, 150, 101, 3), dtype=np.uint8)
     cuda_vlc_compat.launches_fused4 = cuda_vlc_compat.launches_slots = 0
+    cuda_vlc_compat.launches_color = 0
     want = encode_compat_reference(frames, 12, backend="numpy")
     assert encode_compat(frames, 12, device="cpu") == want
     assert encode_compat(frames, 12, device=cuda) == want
     assert encode_compat(frames, 12, device=cuda, debug_checks=True) == want
     assert cuda_vlc_compat.launches_fused4 == cuda_vlc_compat.launches_slots == 1
+    assert cuda_vlc_compat.launches_color == 2
 
 
 def test_new_wrappers_reject_bad_input(cuda):

@@ -8,7 +8,9 @@ one after another inside the caller's own `record_function`;
 call `plane_levels` (the f32 DCT and the generic `pack=` route, not the
 AAN kernel route).  A regrow adds one `encode.enqueue` and one
 `encode.fetch_bits` per re-run, on the same device copies.  The sharded
-encoder copies and launches shard by shard.  No stage span ends in
+encoder copies and launches shard by shard.  Compat copies the RGB
+frames, then converts their colour in `encode.color`: on the card, that
+span holds the colour kernel's launch span.  No stage span ends in
 `_launch` (the suffix that names a kernel launch).  With the profiler
 off, `record_function` is never called.  The bytes are the same traced
 or not.
@@ -20,6 +22,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 from torch.profiler import record_function
 
 from ec504_imageencoder_tpu_torch.models import mpeg1
@@ -34,8 +37,8 @@ CALLER = "caller.span"
 CORRECT = ["encode.pad", "encode.h2d", "encode.enqueue", "encode.fetch_bits",
            "encode.fetch_prefix", "encode.assemble", "encode.release"]
 COEFFS = CORRECT[:2] + ["encode.intake"] + CORRECT[2:]
-COMPAT = ["encode.color", "encode.tables", "encode.h2d", "encode.enqueue",
-          "encode.fetch_bits", "encode.fetch_prefix", "encode.assemble"]
+COMPAT = ["encode.h2d", "encode.color", "encode.tables", "encode.enqueue",
+          "encode.fetch_bits", "encode.fetch_prefix", "encode.fetch_planes", "encode.assemble"]
 H, W = 40, 56  # two macroblock rows and columns of padding
 
 
@@ -154,6 +157,23 @@ def test_compat_spans(tmp_path):
     assert got == want
     assert _children(tree, CALLER) == COMPAT
     assert not any(p is not None and p.startswith("encode.") for _, p in tree)
+
+
+@pytest.mark.requires_cuda
+def test_compat_color_launch_inside_its_span(tmp_path):
+    """On the card `encode.color` holds the colour kernel's launch and
+    nothing else; B4b and B2 launch inside `encode.enqueue`."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; run on the GPU machine with "
+                    "`python -m pytest --noconftest tests/test_torch_spans.py`")
+    frames = _rgb(b=2, h=150, w=101)
+    want = encode_compat(frames, 12, device="cpu")
+    got, tree = _traced(tmp_path, lambda: encode_compat(frames, 12, device="cuda"))
+    assert got == want
+    assert _children(tree, CALLER) == COMPAT
+    assert _children(tree, "encode.color") == ["compat_color_launch"]
+    assert _children(tree, "encode.enqueue") == ["vlc_compat_fused4_launch",
+                                                 "pack_fused4_launch"]
 
 
 @pytest.mark.parametrize("intake", ["planes", "rgb", "coeffs"])
