@@ -47,11 +47,15 @@ spans on the calling thread (`utils.profiling.stage_scope`), one per stage:
 `encode.pad` (validation and host padding), `encode.h2d` (the copies to
 the device), `encode.intake` (the coefficients intake's IDCT and device
 padding), `encode.enqueue` (the device pipeline's launches; inside it
-`encode.levels` around `plane_levels`), `encode.fetch_bits` (the bit
-counts, where the host waits for the device), `encode.fetch_prefix` (the
-used byte prefix), `encode.assemble` (`assemble`) and `encode.release`
+`encode.rgb420` around the RGB route's colour conversion and 4:2:0
+subsampling, and `encode.levels` around `plane_levels`), `encode.fetch_bits`
+(the bit counts, where the host waits for the device), `encode.fetch_prefix`
+(the used byte prefix), `encode.assemble` (`assemble`) and `encode.release`
 (the fetched prefix's host buffer freed).  A re-run after an overflow
-adds one `encode.enqueue` and one `encode.fetch_bits`.
+adds one `encode.enqueue` and one `encode.fetch_bits`.  The module
+counter `rgb420_passes` counts the RGB route's colour-and-subsampling
+passes since the last reset, on any device: one a call, and one more for
+each re-run.
 """
 
 from __future__ import annotations
@@ -110,6 +114,9 @@ FRAME_RATE_VALUES = {v: k for k, v in FRAME_RATE_CODES.items()}
 # codes 0x01..0xAF bound the height at 175 macroblock rows.
 MAX_WIDTH = 4095
 MAX_HEIGHT = 175 * 16  # 2800
+
+# colour-and-subsampling passes of `correct_pipeline` since the last reset
+rgb420_passes = 0
 
 
 def quality_to_quant(quality: int) -> tuple[np.ndarray, int]:
@@ -370,10 +377,16 @@ def coeffs_to_planes(yc, cbc, crc, height: int, width: int):
 def correct_pipeline(core: EncodeCore, rgb, max_slice_bytes: int,
                      color_range: str = "studio", debug_checks: bool = False,
                      first_row: int = 0):
-    """(B, H, W, 3) u8 RGB, H and W multiples of 16 -> (seg, nbits)."""
-    y, cb, cr = rgb_to_ycbcr(rgb, color_range)
-    return core(y, subsample_420(cb), subsample_420(cr), max_slice_bytes, debug_checks,
-                first_row)
+    """(B, H, W, 3) u8 RGB, H and W multiples of 16 -> (seg, nbits): the
+    colour conversion and 4:2:0 subsampling, run as the span
+    `encode.rgb420` and counted in `rgb420_passes`, then
+    `correct_pipeline_planes`."""
+    global rgb420_passes
+    with stage_scope("encode.rgb420"):
+        y, cb, cr = rgb_to_ycbcr(rgb, color_range)
+        cb, cr = subsample_420(cb), subsample_420(cr)
+    rgb420_passes += 1
+    return correct_pipeline_planes(core, y, cb, cr, max_slice_bytes, debug_checks, first_row)
 
 
 class TorchMPEG1IntraEncoder:

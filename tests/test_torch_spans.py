@@ -6,9 +6,11 @@ and the sharded encoder's) writes its stage spans once each, in order,
 one after another inside the caller's own `record_function`;
 `encode.levels` sits inside `encode.enqueue` on exactly the routes that
 call `plane_levels` (the f32 DCT and the generic `pack=` route, not the
-AAN kernel route).  A regrow adds one `encode.enqueue` and one
-`encode.fetch_bits` per re-run, on the same device copies.  The sharded
-encoder copies and launches shard by shard.  Compat copies the RGB
+AAN kernel route), and on the RGB route `encode.rgb420` (colour and 4:2:0)
+before it.  A regrow adds one `encode.enqueue` and one `encode.fetch_bits`
+per re-run, on the same device copies, and one more colour pass, counted
+in `rgb420_passes`.  The sharded encoder copies and launches shard by
+shard.  Compat copies the RGB
 frames, then converts their colour in `encode.color`: on the card, that
 span holds the colour kernel's launch span.  No stage span ends in
 `_launch` (the suffix that names a kernel launch).  With the profiler
@@ -89,11 +91,13 @@ def _children(tree, parent):
     return [name for name, p in tree if p == parent]
 
 
-def _check_correct_mode(tree, top, levels):
+def _check_correct_mode(tree, top, levels, rgb=False):
     assert _children(tree, None) == [CALLER]
     assert _children(tree, CALLER) == top
-    assert _children(tree, "encode.enqueue") == (["encode.levels"] if levels else [])
+    assert _children(tree, "encode.enqueue") == (["encode.rgb420"] * rgb
+                                                 + ["encode.levels"] * levels)
     assert sum(name == "encode.levels" for name, _ in tree) == int(levels)
+    assert sum(name == "encode.rgb420" for name, _ in tree) == int(rgb)
 
 
 @pytest.mark.parametrize("intake,dct_impl,pack,levels", [
@@ -113,7 +117,8 @@ def test_correct_mode_spans(tmp_path, intake, dct_impl, pack, levels):
     want = call()
     got, tree = _traced(tmp_path, call)
     assert got == want
-    _check_correct_mode(tree, COEFFS if intake == "coeffs" else CORRECT, levels)
+    _check_correct_mode(tree, COEFFS if intake == "coeffs" else CORRECT, levels,
+                        rgb=intake == "rgb")
 
 
 def _count_forward(monkeypatch):
@@ -200,6 +205,23 @@ def test_regrow_spans_count_the_reruns(tmp_path, monkeypatch, intake):
     assert sum(name == "encode.h2d" for name, _ in tree) == calls
 
 
+@pytest.mark.parametrize("max_slice_bytes,passes", [(None, 1), (8, 2)])
+def test_rgb420_passes_count_the_colour_passes(tmp_path, monkeypatch, max_slice_bytes, passes):
+    """One colour-and-subsampling pass a call, one more for a regrow's
+    re-run, each an `encode.rgb420` span inside its `encode.enqueue`;
+    the planes intakes make none."""
+    monkeypatch.setattr(mpeg1, "rgb420_passes", 0)
+    enc = TorchMPEG1IntraEncoder(quality=50, max_slice_bytes=max_slice_bytes, device="cpu")
+    _, tree = _traced(tmp_path, lambda: enc.encode(_rgb()))
+    assert mpeg1.rgb420_passes == passes
+    assert _children(tree, "encode.enqueue") == ["encode.rgb420"] * passes
+    enc.encode_from_planes(*_planes())
+    enc.encode_from_coeffs(*_coeffs(), H, W)
+    assert mpeg1.rgb420_passes == passes
+    enc.encode(_rgb(seed=9))
+    assert mpeg1.rgb420_passes == passes + 1
+
+
 def _stage_names():
     """The literal names of every `stage_scope("...")` in the port."""
     pattern = re.compile(r'stage_scope\(\s*"([^"]+)"')
@@ -208,7 +230,7 @@ def _stage_names():
 
 def test_no_stage_span_ends_in_launch():
     names = _stage_names()
-    assert set(CORRECT + COMPAT) | {"encode.intake", "encode.levels"} == names
+    assert set(CORRECT + COMPAT) | {"encode.intake", "encode.levels", "encode.rgb420"} == names
     assert not [n for n in names if n.endswith("_launch")]
 
 
