@@ -39,8 +39,11 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    (B2 also as the profiler's device time), and q=50 encode() /
    encode_from_planes() in frames/s with every output byte fetched to the
    host;
-6. kernel B3 (vlc_levels4) against its twin: 16 x 1080p at q=85 (levels
-   computed once on the card by the f32 DCT path), 2 x 1000 x 1400 noise
+6. the f32 levels kernel (f32_levels) against its twin on the 16 x
+   1080p planes at q=85 and the 2 x 1000 x 1400 noise (padded to 1008 x
+   1408) at q=100: exact; kernel B3 (vlc_levels4) against its twin: 16 x
+   1080p at q=85 (levels computed once on the card by the f32 levels
+   kernel), 2 x 1000 x 1400 noise
    at q=100 (28-bit escapes), the flat planes and checkerboards of phase 2
    at q=100, and the noise's levels with each block's largest AC level
    moved to the last slot and the others cleared (runs of 62, escapes):
@@ -57,14 +60,16 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
 8. the q=85 path (f32 DCT): encode() and encode_from_planes() on the 16 x
    1080p frames byte-equal to the CPU path; the same bytes for 16 frames
    at once, 2 x 8 and 16 x 1 (first_frame_index), and with TF32 matmuls
-   allowed; dct_impl="aan" at q=85 byte-equal to the CPU path; the B3 and
-   B2 launch counts went up and B1's did not;
+   allowed; dct_impl="aan" at q=85 byte-equal to the CPU path; the f32
+   levels, B3 and B2 launch counts went up (the f32 levels kernel once a
+   B3 launch, that is once a call) and B1's did not;
 9. compat mode: encode_compat(device="cuda") equals the golden stream and
    .bit dump md5s on the 30 golden frames, also with debug_checks (raw
    slots through B4a, then B2's checked form), and equals the CPU path's
    encode_compat on the 480 frames; the B4b and B4a launch counts went up,
    and the colour kernel's by one a call;
-10. times: B3, B4b and B4a against their twins (B4b and B4a also as
+10. times: the f32 levels kernel, B3, B4b and B4a against their twins
+   (the f32 levels kernel beside its f32 instruction bound; B4b and B4a also as
    the profiler's device time, beside their bound), the compat colour at
    30 and 480 frames of 400 x 600 (events and device time, beside its
    bytes bound; its twin at 30 frames), q=85
@@ -234,6 +239,12 @@ ENTRY_COMPAT_FRAMES = 30
 # Guide, compute capability 9.0) x 132 SMs x 1.98 GHz.
 MEM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 64 * 132 * 1.98e9
+# The f32 levels kernel's floor is its f32 instructions: 128 FMUL or FADD
+# per SM per clock x 132 SMs x 1.98 GHz, and per 8x8 block 512 products
+# d[v][y] * x[y][k], 4,096 products by d[u][k] and 64 chains of 63 adds
+# (numpy's order: no two of them merge into an FMA).
+F32_OPS_PER_S = 128 * 132 * 1.98e9
+OPS_F32_LEVELS_BLOCK = 512 + 4096 + 64 * 63
 # Integer operations per 8x8 block of the planes -> slots kernels: the AAN
 # DCT (16 butterflies of 36 adds and multiplies, 64 descaling shifts),
 # quantization (6 per coefficient) and the emission (4 per slot).
@@ -407,10 +418,12 @@ def _frames_per_s(torch, fn, n_frames: int, reps: int) -> tuple[float, float]:
     return n_frames * reps / dt, 1e3 * dt / reps
 
 
-def _bound(nbytes: float, int_ops: float) -> tuple[float, str]:
-    """(least ms, "bytes" or "operations")."""
-    t_bytes, t_ops = nbytes / MEM_BYTES_PER_S, int_ops / INT_OPS_PER_S
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+def _bound(nbytes: float, int_ops: float, f32_ops: float = 0.0) -> tuple[float, str]:
+    """(least ms, "bytes", "operations" or "f32 operations")."""
+    terms = {"bytes": nbytes / MEM_BYTES_PER_S, "operations": int_ops / INT_OPS_PER_S,
+             "f32 operations": f32_ops / F32_OPS_PER_S}
+    which = max(terms, key=terms.get)
+    return 1e3 * terms[which], which
 
 
 def _check_twin(torch, name, kernel, twin, args) -> int:
@@ -778,6 +791,7 @@ def main() -> int:
 
     def reset_launches():
         cuda_vlc.launches = cuda_pack.launches = cuda_vlc_levels.launches = 0
+        cuda_vlc_levels.launches_levels = 0
         cuda_vlc_compat.launches_slots = cuda_vlc_compat.launches_fused4 = 0
         cuda_vlc_compat.launches_color = 0
         cuda_vlc_raw.launches = cuda_lut.launches = cuda_pack.launches_checked = 0
@@ -788,6 +802,7 @@ def main() -> int:
     def read_launches():
         return {"vlc_fused4": cuda_vlc.launches, "pack_fused4": cuda_pack.launches,
                 "vlc_levels4": cuda_vlc_levels.launches,
+                "f32_levels": cuda_vlc_levels.launches_levels,
                 "vlc_compat_slots": cuda_vlc_compat.launches_slots,
                 "vlc_compat_fused4": cuda_vlc_compat.launches_fused4,
                 "compat_color": cuda_vlc_compat.launches_color,
@@ -926,8 +941,8 @@ def main() -> int:
     launches = read_launches()
     _check_launches(f"q={QUALITY} path (encode + encode_from_planes + regrow encode, "
                     f"{main_s:.2f} s)", launches, ("vlc_fused4", "pack_fused4"),
-                    ("vlc_levels4", "vlc_compat_slots", "vlc_compat_fused4", "compat_color",
-                     *sanitizer_kernels, *fuse8_kernels, *raw_pack_kernels))
+                    ("vlc_levels4", "f32_levels", "vlc_compat_slots", "vlc_compat_fused4",
+                     "compat_color", *sanitizer_kernels, *fuse8_kernels, *raw_pack_kernels))
     if regrow.max_slice_bytes <= 2560:
         raise AssertionError("the forced-regrow run did not regrow")
     print(f"regrow: 2560 B -> {regrow.max_slice_bytes} B per slice")
@@ -985,8 +1000,14 @@ def main() -> int:
     hq = TorchMPEG1IntraEncoder(quality=HQ_QUALITY, device=dev)
     if hq.dct_impl != "f32":
         raise AssertionError(f"dct_impl 'auto' at q={HQ_QUALITY} did not pick f32")
-    hq_in = plane_levels(*planes_hd, hq.core.qw, hq.core.zigzag)
+    hq_args = (*planes_hd, hq.core.qw, hq.core.zigzag)
     q100 = TorchMPEG1IntraEncoder(quality=100, device=dev).core
+    levels_err = max(
+        _check_twin(torch, f"f32 levels vs twin, {name}", cuda_vlc_levels.f32_levels,
+                    cuda_vlc_levels.f32_levels_plain, args)
+        for name, args in ((f"16x1080p q={HQ_QUALITY}", hq_args),
+                           (f"2x{oh}x{ow} noise q=100", (*planes_odd, q100.qw, q100.zigzag))))
+    hq_in = plane_levels(*planes_hd, hq.core.qw, hq.core.zigzag)
     noise_in = plane_levels(*planes_odd, q100.qw, q100.zigzag)
     if int(noise_in[0][..., 1:].abs().max()) < 128:
         raise AssertionError("the q=100 noise levels hold no 28-bit escape")
@@ -1085,8 +1106,10 @@ def main() -> int:
     hq_s = time.perf_counter() - t0
     hq_launches = read_launches()
     _check_launches(f"q={HQ_QUALITY} path (encode + encode_from_planes, {hq_s:.2f} s)",
-                    hq_launches, ("vlc_levels4", "pack_fused4"),
+                    hq_launches, ("f32_levels", "vlc_levels4", "pack_fused4"),
                     ("vlc_fused4", *sanitizer_kernels, *fuse8_kernels, *raw_pack_kernels))
+    if hq_launches["f32_levels"] != hq_launches["vlc_levels4"]:
+        raise AssertionError("the f32 levels kernel did not launch once a B3 launch")
 
     t0 = time.perf_counter()
     cpu_hq_rgb = TorchMPEG1IntraEncoder(quality=HQ_QUALITY, device="cpu").encode(frames)
@@ -1159,12 +1182,16 @@ def main() -> int:
     n_compat_blocks = len(compat_frames) * 6 * 54
     work["vlc_levels4"] = (hq_in[0].numel() * 4 + hq_in[1].numel() * 4 + 5 * 4 * sl_hd[4].numel(),
                            n_blocks_hd * OPS_EMIT_BLOCK)
+    # the planes read once, the levels and predictors written once
+    work["f32_levels"] = (plane_bytes_hd + hq_in[0].numel() * 4 + hq_in[1].numel() * 4, 0,
+                          n_blocks_hd * OPS_F32_LEVELS_BLOCK)
     # compat reads the 96 x 144 crop of each plane: 64 B per block
     work["vlc_compat_fused4"] = (n_compat_blocks * (64 + 5 * 4 * 16),
                                  n_compat_blocks * (OPS_DCT_BLOCK + OPS_EMIT_BLOCK))
     work["vlc_compat_slots"] = (n_compat_blocks * (64 + 2 * 4 * 64),
                                 n_compat_blocks * (OPS_DCT_BLOCK + OPS_EMIT_BLOCK))
     for name, kernel, twin, args in (
+        ("f32_levels", cuda_vlc_levels.f32_levels, cuda_vlc_levels.f32_levels_plain, hq_args),
         ("vlc_levels4", cuda_vlc_levels.vlc_levels4, cuda_vlc_levels.vlc_levels4_plain,
          (*hq_in, luts)),
         ("vlc_compat_fused4", cuda_vlc_compat.vlc_compat_fused4,
@@ -1174,11 +1201,16 @@ def main() -> int:
     ):
         times[name] = (_event_ms(torch, lambda: kernel(*args), 20),
                        _event_ms(torch, lambda: twin(*args), 3))
-        where = (f"16x1080p q={HQ_QUALITY}" if name == "vlc_levels4"
-                 else f"{len(compat_frames)} frames")
+        hd = name in ("f32_levels", "vlc_levels4")
+        where = f"16x1080p q={HQ_QUALITY}" if hd else f"{len(compat_frames)} frames"
         print(f"{name} at {where}: kernel {times[name][0]:.4f} ms, "
               f"plain twin {times[name][1]:.4f} ms {tag}")
-        if name != "vlc_levels4":
+        if name == "f32_levels":
+            print(f"f32_levels at {where}: device time (profiler records) "
+                  f"{_device_ms(torch, lambda: kernel(*args), 20)}, events "
+                  f"{times[name][0]:.4f} ms, bound {_bound(*work[name])[0]:.4f} ms "
+                  f"({_bound(*work[name])[1]}) {tag}")
+        if not hd:
             # a compat launch is short enough that the wrapper's host cost
             # can show in the event time: the profiler's device time too
             print(f"{name} at {where}: device time (profiler records) "
@@ -1210,7 +1242,7 @@ def main() -> int:
         del rgb_dev
     print(f"compat_color's plain twin at 30 x 400x600 on the card: "
           f"{times['compat_color'][1]:.4f} ms {tag}")
-    del big, compat_planes
+    del big, compat_planes, hq_args
 
     # ---- 11. B6a against its twin ----------------------------------------
     # the planes kernels' cases (name, planes, qw, phase 2's slots key):
@@ -2019,6 +2051,9 @@ def main() -> int:
          launches, b2_err),
         ("vlc_levels4", "vlc_levels4.cu", "ec504_imageencoder_tpu/ops/pallas_vlc.py:222",
          hq_launches, b3_err),
+        ("f32_levels", "vlc_levels4.cu",
+         "none: the reference's XLA einsum ops/dct.py::matmul_dct and elementwise ops",
+         hq_launches, levels_err),
         ("vlc_compat_slots", "vlc_compat.cu", "ec504_imageencoder_tpu/ops/pallas_vlc.py:851",
          debug_launches, b4a_err),
         ("vlc_compat_fused4", "vlc_compat.cu", "ec504_imageencoder_tpu/ops/pallas_vlc.py:859",
@@ -2057,9 +2092,10 @@ def main() -> int:
             "ms": times[name][0], "plain_ms": times[name][1],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library.get(name),
         })
+        f32_ops = f", {work[name][2] / 1e9:.3f} G f32 ops" if len(work[name]) > 2 else ""
         print(f"{name}: {times[name][0]:.4f} ms against a bound of {bound_ms:.4f} ms "
-              f"({bound_by}; {work[name][0] / 1e6:.1f} MB, {work[name][1] / 1e9:.3f} G int ops) "
-              f"{tag}")
+              f"({bound_by}; {work[name][0] / 1e6:.1f} MB, {work[name][1] / 1e9:.3f} G int ops"
+              f"{f32_ops}) {tag}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

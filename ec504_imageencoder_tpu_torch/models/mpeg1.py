@@ -10,10 +10,11 @@ of the reference (`dct_impl`):
   prediction, VLC emission, 4:1 fusion) reads the planes, kernel B2
   packs; with `fuse=8` (the reference's EC504_FUSE=8) kernel B6b fuses
   8:1 instead and kernel B6c packs its 256-bit slots;
-* "f32", the f32 matrix DCT of the high-quality path: blockize,
-  `matmul_dct`, quantize, zigzag and DC prediction in PyTorch
-  (`plane_levels`, the reference's `_generic_pipeline_from_planes`), then
-  kernel B3 (VLC emission, 4:1 fusion) and B2.
+* "f32", the f32 matrix DCT of the high-quality path: the f32 levels
+  kernel (blockize, `matmul_dct` in numpy's operation order, quantize,
+  zigzag and DC prediction in one launch: `plane_levels`, the reference's
+  `_generic_pipeline_from_planes`), then kernel B3 (VLC emission, 4:1
+  fusion) and B2.
 
 With a `pack` other than "fused4" (the reference's EC504_VLC=xla with
 EC504_PACK) the reference's generic emission runs instead, with either
@@ -78,17 +79,14 @@ from ec504_imageencoder_tpu_torch.ops.cuda_pack import (
 from ec504_imageencoder_tpu_torch.ops.cuda_pack_split import pack_split, pack_windows
 from ec504_imageencoder_tpu_torch.ops.cuda_vlc import (
     Luts,
-    blockize,
     to_i32_bits,
     vlc_fused4,
     vlc_fused8,
 )
-from ec504_imageencoder_tpu_torch.ops.cuda_vlc_levels import vlc_levels4
+from ec504_imageencoder_tpu_torch.ops.cuda_vlc_levels import f32_levels, levels_plain, vlc_levels4
 from ec504_imageencoder_tpu_torch.ops.cuda_vlc_raw import vlc_raw
-from ec504_imageencoder_tpu_torch.ops.dct import aan_dct, matmul_dct
-from ec504_imageencoder_tpu_torch.ops.quant import quantize_intra
-from ec504_imageencoder_tpu_torch.ops.vlc_device import dc_predictors, slot_violations
-from ec504_imageencoder_tpu_torch.ops.zigzag import zigzag_scan
+from ec504_imageencoder_tpu_torch.ops.dct import aan_dct
+from ec504_imageencoder_tpu_torch.ops.vlc_device import slot_violations
 from ec504_imageencoder_tpu_torch.syntax import headers
 from ec504_imageencoder_tpu_torch.syntax.bitwriter import BitWriter
 from ec504_imageencoder_tpu_torch.utils.profiling import stage_scope
@@ -229,18 +227,15 @@ def plane_levels(y, cb, cr, qw, zigzag, dct_impl: str = "f32"):
     the DCT `dct_impl` ("f32": `matmul_dct`, "aan": `aan_dct`): padded
     planes -> (levels (B * mbh, mbw * 6, 64) int32, zigzag order, slot 0
     the absolute quantized DC; preds (B * mbh, mbw * 6) int32 DC
-    predictors), the input of kernel B3 and of `raw_slots`.  Traced as
-    the span `encode.levels`."""
+    predictors), the input of kernel B3 and of `raw_slots`.  With "f32"
+    on CUDA tensors the f32 levels kernel (`cuda_vlc_levels.f32_levels`)
+    computes them in one launch; on CPU tensors, and with "aan", the plain
+    PyTorch ops (`cuda_vlc_levels.levels_plain`).  Traced as the span
+    `encode.levels`."""
     with stage_scope("encode.levels"):
-        blocks = blockize(y, cb, cr)                       # (B, mbh, mbw, 6, 8, 8)
-        bsz, mbh, mbw = blocks.shape[:3]
-        dct = aan_dct if dct_impl == "aan" else matmul_dct
-        dc, lvl = quantize_intra(dct(blocks), qw)
-        zz = zigzag_scan(lvl, zigzag)
-        lane = torch.arange(64, device=y.device)
-        zz = torch.where(lane == 0, dc[..., None], zz)
-        r = bsz * mbh
-        return zz.reshape(r, mbw * 6, 64), dc_predictors(dc).reshape(r, mbw * 6)
+        if dct_impl == "aan":
+            return levels_plain(y, cb, cr, qw, zigzag, aan_dct)
+        return f32_levels(y, cb, cr, qw, zigzag)
 
 
 def _check_pack(pack) -> None:

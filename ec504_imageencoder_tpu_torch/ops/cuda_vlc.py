@@ -146,6 +146,14 @@ def vlc_fused8_plain(y, cb, cr, qw, luts: Luts):
 
 def check_planes(y, cb, cr, qw, luts: Luts) -> None:
     """Raise unless the arguments are what B1, B6a and B6b take."""
+    check_plane_shapes(y, cb, cr)
+    check_matrix("qw", qw, y.device)
+    luts.check(y.device)
+
+
+def check_plane_shapes(y, cb, cr) -> None:
+    """Raise unless y (B, H, W) and cb, cr (B, H/2, W/2) are u8 planes on
+    one device, padded to macroblocks and at most MAX_WIDTH wide."""
     if y.dim() != 3:
         raise ValueError(f"y must be (B, H, W), got {tuple(y.shape)}")
     bsz, h, w = y.shape
@@ -159,8 +167,6 @@ def check_planes(y, cb, cr, qw, luts: Luts) -> None:
     for name, t in (("y", y), ("cb", cb), ("cr", cr)):
         if t.dtype != torch.uint8:
             raise TypeError(f"{name} must be uint8, got {t.dtype}")
-    check_matrix("qw", qw, y.device)
-    luts.check(y.device)
     for name, t in (("cb", cb), ("cr", cr)):
         if t.device != y.device:
             raise ValueError(f"{name} is on {t.device}, y on {y.device}")
