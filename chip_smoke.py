@@ -789,29 +789,8 @@ def main() -> int:
     from ec504_imageencoder_tpu_torch.ops.vlc_device import zero_runs
     from ec504_imageencoder_tpu_torch.utils.tables import scale_quantization_matrix
 
-    def reset_launches():
-        cuda_vlc.launches = cuda_pack.launches = cuda_vlc_levels.launches = 0
-        cuda_vlc_levels.launches_levels = 0
-        cuda_vlc_compat.launches_slots = cuda_vlc_compat.launches_fused4 = 0
-        cuda_vlc_compat.launches_color = 0
-        cuda_vlc_raw.launches = cuda_lut.launches = cuda_pack.launches_checked = 0
-        cuda_vlc.launches8 = cuda_pack.launches8 = 0
-        cuda_pack.launches_raw = cuda_pack.launches_pairs = 0
-        cuda_pack_split.launches_windows = cuda_pack_split.launches_split = 0
-
-    def read_launches():
-        return {"vlc_fused4": cuda_vlc.launches, "pack_fused4": cuda_pack.launches,
-                "vlc_levels4": cuda_vlc_levels.launches,
-                "f32_levels": cuda_vlc_levels.launches_levels,
-                "vlc_compat_slots": cuda_vlc_compat.launches_slots,
-                "vlc_compat_fused4": cuda_vlc_compat.launches_fused4,
-                "compat_color": cuda_vlc_compat.launches_color,
-                "vlc_raw": cuda_vlc_raw.launches, "lut_lookup": cuda_lut.launches,
-                "pack_fused4_checked": cuda_pack.launches_checked,
-                "vlc_fused8": cuda_vlc.launches8, "pack_fused8": cuda_pack.launches8,
-                "pack_raw": cuda_pack.launches_raw, "pack_pairs": cuda_pack.launches_pairs,
-                "pack_windows": cuda_pack_split.launches_windows,
-                "pack_split": cuda_pack_split.launches_split}
+    reset_launches = _build.launches.clear
+    read_launches = _build.launches.copy  # a Counter: 0 for a kernel never launched
 
     sanitizer_kernels = ("vlc_raw", "lut_lookup", "pack_fused4_checked")
     fuse8_kernels = ("vlc_fused8", "pack_fused8")
@@ -1369,8 +1348,7 @@ def main() -> int:
                          *raw_pack_kernels))
         _check_equal(f"q={q} debug_checks encode", d_rgb, cpu_pair[0])
         _check_equal(f"q={q} debug_checks encode_from_planes", d_planes, cpu_pair[1])
-    debug_counts["sum"] = {k: debug_counts[QUALITY][k] + debug_counts[HQ_QUALITY][k]
-                           for k in debug_counts[QUALITY]}
+    debug_counts["sum"] = debug_counts[QUALITY] + debug_counts[HQ_QUALITY]
 
     real_raw = mpeg1.vlc_raw
 

@@ -26,13 +26,18 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch import nn
 
 from ec504_imageencoder_tpu_torch.device import resolve_device
-from ec504_imageencoder_tpu_torch.models.mpeg1 import SLICE_HEADER_BITS
-from ec504_imageencoder_tpu_torch.ops.bitpack import fuse4, or_slice_headers
+from ec504_imageencoder_tpu_torch.models.mpeg1 import (
+    SLICE_HEADER_BITS,
+    LutCore,
+    fetch_bits,
+    fetch_prefix,
+    pack_checked,
+)
+from ec504_imageencoder_tpu_torch.ops.bitpack import or_slice_headers
 from ec504_imageencoder_tpu_torch.ops.cuda_pack import pack_fused4
-from ec504_imageencoder_tpu_torch.ops.cuda_vlc import Luts, to_i32_bits
+from ec504_imageencoder_tpu_torch.ops.cuda_vlc import Luts
 from ec504_imageencoder_tpu_torch.ops.cuda_vlc_compat import (  # noqa: F401 (re-exported)
     CROP_H,
     CROP_W,
@@ -42,7 +47,6 @@ from ec504_imageencoder_tpu_torch.ops.cuda_vlc_compat import (  # noqa: F401 (re
     vlc_compat_fused4,
     vlc_compat_slots,
 )
-from ec504_imageencoder_tpu_torch.ops.vlc_device import slot_violations
 from ec504_imageencoder_tpu_torch.syntax import headers
 from ec504_imageencoder_tpu_torch.utils.profiling import stage_scope
 from ec504_imageencoder_tpu_torch.utils.tables import scale_quantization_matrix
@@ -67,20 +71,15 @@ def _validate_frames(frames: np.ndarray) -> None:
         raise ValueError(f"expected uint8 frames, got {frames.dtype}")
 
 
-class CompatCore(nn.Module):
+class CompatCore(LutCore):
     """The scaled JPEG matrix and the compat VLC tables as buffers; forward
     runs the device pipeline from full-resolution planes to slice
     segments."""
 
     def __init__(self, quality: int):
-        super().__init__()
+        super().__init__(Luts.compat("cpu"))
         sq = scale_quantization_matrix(quality).astype(np.int32)
         self.register_buffer("scaled_q", torch.from_numpy(sq))
-        for name, t in Luts.compat("cpu")._asdict().items():
-            self.register_buffer(name, t)
-
-    def luts(self) -> Luts:
-        return Luts(self.zigzag, self.ac_code, self.ac_len, self.dc_code, self.dc_len)
 
     def forward(self, y, cb, cr, debug_checks: bool = False):
         """y, cb, cr (B, H, W) u8 full-resolution planes ->
@@ -95,13 +94,7 @@ class CompatCore(nn.Module):
         mw = MAX_SLICE_BYTES_COMPAT // 4
         if debug_checks:
             codes, lens = vlc_compat_slots(y, cb, cr, self.scaled_q, self.luts())
-            viol = slot_violations(codes, lens)
-            r = codes.shape[0]
-            stream = [t.transpose(1, 2).reshape(r, -1) for t in (codes, lens)]
-            slots = tuple(to_i32_bits(t) for t in fuse4(*stream))
-            seg, nbits, pviol = pack_fused4(*slots, mw, bit_offset=SLICE_HEADER_BITS, checks=True)
-            viol = viol + pviol
-            nbits = torch.where(viol > 0, -viol, nbits)
+            seg, nbits = pack_checked(codes.transpose(1, 2), lens.transpose(1, 2), mw)
         else:
             slots = vlc_compat_fused4(y, cb, cr, self.scaled_q, self.luts())
             seg, nbits = pack_fused4(*slots, mw, bit_offset=SLICE_HEADER_BITS)
@@ -132,18 +125,9 @@ def encode_compat(frames_rgb, quality: int = 12, *, device="cuda",
     with stage_scope("encode.enqueue"):
         seg_dev, bits_dev = core(*planes, debug_checks=debug_checks)
     # two-step fetch: the bit counts first, then only the used byte prefix
-    with stage_scope("encode.fetch_bits"):
-        seg_bits = bits_dev.cpu().numpy()
-    if int(seg_bits.min(initial=0)) < 0:
-        viol = -seg_bits[seg_bits < 0]
-        raise RuntimeError(
-            f"VLC slot invariant violations in {viol.size} compat slice(s) "
-            f"({int(viol.sum())} in all)"
-        )
-    used = int(seg_bits.max(initial=0) + 7) // 8
-    bucket = min(max(256, 1 << (used - 1).bit_length()), MAX_SLICE_BYTES_COMPAT)
-    with stage_scope("encode.fetch_prefix"):
-        seg_bytes = seg_dev[:, :, :bucket].cpu().numpy()
+    seg_bits = fetch_bits(bits_dev, "VLC slot invariant violations in {slices} compat "
+                                    "slice(s) ({hits} in all)")
+    seg_bytes = fetch_prefix(seg_dev, int(seg_bits.max(initial=0)), MAX_SLICE_BYTES_COMPAT)
     with stage_scope("encode.fetch_planes"):
         y, cb, cr = planes.cpu().numpy()  # the .bit dumps hold every pixel
 

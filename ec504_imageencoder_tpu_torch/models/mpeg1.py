@@ -67,7 +67,7 @@ from torch import nn
 
 from ec504_imageencoder_tpu_torch.device import resolve_device
 from ec504_imageencoder_tpu_torch.ops import jpeg_device
-from ec504_imageencoder_tpu_torch.ops.bitpack import fuse4, or_slice_headers
+from ec504_imageencoder_tpu_torch.ops.bitpack import or_slice_headers
 from ec504_imageencoder_tpu_torch.ops.color import rgb_to_ycbcr, subsample_420
 from ec504_imageencoder_tpu_torch.ops.cuda_lut import block_streams_lut
 from ec504_imageencoder_tpu_torch.ops.cuda_pack import (
@@ -79,11 +79,12 @@ from ec504_imageencoder_tpu_torch.ops.cuda_pack import (
 from ec504_imageencoder_tpu_torch.ops.cuda_pack_split import pack_split, pack_windows
 from ec504_imageencoder_tpu_torch.ops.cuda_vlc import (
     Luts,
-    to_i32_bits,
+    fuse4_i32,
+    levels_plain,
     vlc_fused4,
     vlc_fused8,
 )
-from ec504_imageencoder_tpu_torch.ops.cuda_vlc_levels import f32_levels, levels_plain, vlc_levels4
+from ec504_imageencoder_tpu_torch.ops.cuda_vlc_levels import f32_levels, vlc_levels4
 from ec504_imageencoder_tpu_torch.ops.cuda_vlc_raw import vlc_raw
 from ec504_imageencoder_tpu_torch.ops.dct import aan_dct
 from ec504_imageencoder_tpu_torch.ops.vlc_device import slot_violations
@@ -230,7 +231,7 @@ def plane_levels(y, cb, cr, qw, zigzag, dct_impl: str = "f32"):
     predictors), the input of kernel B3 and of `raw_slots`.  With "f32"
     on CUDA tensors the f32 levels kernel (`cuda_vlc_levels.f32_levels`)
     computes them in one launch; on CPU tensors, and with "aan", the plain
-    PyTorch ops (`cuda_vlc_levels.levels_plain`).  Traced as the span
+    PyTorch ops (`cuda_vlc.levels_plain`).  Traced as the span
     `encode.levels`."""
     with stage_scope("encode.levels"):
         if dct_impl == "aan":
@@ -243,7 +244,42 @@ def _check_pack(pack) -> None:
         raise ValueError(f"pack must be one of {', '.join(map(repr, PACKS))}, got {pack!r}")
 
 
-class EncodeCore(nn.Module):
+def negate_violations(nbits, viol):
+    """nbits with each slice's violation count negated where it has any:
+    how the sanitizer reports a slice to the host."""
+    return torch.where(viol > 0, -viol, nbits)
+
+
+def pack_checked(codes, lens, max_words: int, viol=None):
+    """The sanitizer's pack: raw (codes, lens) (R, ...) in stream order
+    (u32 codes) and an optional (R,) count of violations found before ->
+    (seg (R, 4 * max_words) u8, nbits (R,) int32).  The slot invariants are
+    checked (`slot_violations`), the slots fused 4:1 in PyTorch (the
+    counterpart of the reference's `fuse_slots_streamwise`) and packed by
+    B2's checked form at bit offset 38; a slice's violations (earlier,
+    slot, fused length and overlap) are negated in nbits."""
+    found = slot_violations(codes, lens)
+    if viol is not None:
+        found = viol + found
+    seg, nbits, pviol = pack_fused4(*fuse4_i32(codes, lens), max_words,
+                                    bit_offset=SLICE_HEADER_BITS, checks=True)
+    return seg, negate_violations(nbits, found + pviol)
+
+
+class LutCore(nn.Module):
+    """A module whose VLC tables are buffers named after the `Luts` fields;
+    `luts()` reads them back on the module's device."""
+
+    def __init__(self, luts: Luts):
+        super().__init__()
+        for name, t in luts._asdict().items():
+            self.register_buffer(name, t)
+
+    def luts(self) -> Luts:
+        return Luts(*(getattr(self, name) for name in Luts._fields))
+
+
+class EncodeCore(LutCore):
     """Quantizer state and VLC tables as buffers; forward runs the device
     pipeline from padded 4:2:0 planes to slice segments with the DCT
     `dct_impl` ("aan" or "f32"), on the AAN production route `fuse` (4: B1
@@ -253,7 +289,7 @@ class EncodeCore(nn.Module):
 
     def __init__(self, intra_q: np.ndarray, qscale: int, dct_impl: str, fuse: int = 4,
                  pack: str = "fused4"):
-        super().__init__()
+        super().__init__(Luts.default("cpu"))
         if dct_impl not in DCT_IMPLS:
             raise ValueError(f"dct_impl must be 'aan' or 'f32', got {dct_impl!r}")
         if fuse not in FUSES:
@@ -266,11 +302,6 @@ class EncodeCore(nn.Module):
         iq = torch.as_tensor(np.asarray(intra_q), dtype=torch.int32)
         self.register_buffer("intra_q", iq)
         self.register_buffer("qw", iq * self.qscale)
-        for name, t in Luts.default("cpu")._asdict().items():
-            self.register_buffer(name, t)
-
-    def luts(self) -> Luts:
-        return Luts(self.zigzag, self.ac_code, self.ac_len, self.dc_code, self.dc_len)
 
     def forward(self, y, cb, cr, max_slice_bytes: int, debug_checks: bool = False,
                 first_row: int = 0):
@@ -293,13 +324,12 @@ class EncodeCore(nn.Module):
             codes, lens = self.raw_slots(y, cb, cr)
             seg, nbits = RAW_PACKS[self.pack](codes, lens, mw, bit_offset=SLICE_HEADER_BITS)
             if debug_checks:
-                viol = slot_violations(codes, lens)
-                nbits = torch.where(viol > 0, -viol, nbits)
+                nbits = negate_violations(nbits, slot_violations(codes, lens))
+        elif debug_checks and self.dct_impl == "aan":
+            codes, lens, viol = vlc_raw(y, cb, cr, self.qw, self.luts())  # (R, 64, NB)
+            seg, nbits = pack_checked(codes.transpose(1, 2), lens.transpose(1, 2), mw, viol)
         elif debug_checks:
-            slots, viol = self._checked_slots(y, cb, cr)
-            seg, nbits, pviol = pack_fused4(*slots, mw, bit_offset=SLICE_HEADER_BITS, checks=True)
-            viol = viol + pviol
-            nbits = torch.where(viol > 0, -viol, nbits)
+            seg, nbits = pack_checked(*self.raw_slots(y, cb, cr), mw)
         elif self.dct_impl == "aan" and self.fuse == 8:
             words, flens = vlc_fused8(y, cb, cr, self.qw, self.luts())
             seg, nbits = pack_fused8(words, flens, mw, bit_offset=SLICE_HEADER_BITS)
@@ -323,22 +353,6 @@ class EncodeCore(nn.Module):
         codes, lens = block_streams_lut(levels, preds, comp < 4, comp == 0)
         r = codes.shape[0]
         return codes.reshape(r, -1).to(torch.int32), lens.reshape(r, -1).to(torch.int32)
-
-    def _checked_slots(self, y, cb, cr):
-        """The raw-slot routes: -> (fused slots (v0, v1, v2, v3, flens),
-        (R,) int32 violations: slot invariants, and for "aan" the DCT
-        guard).  The raw slots are fused in stream order, the counterpart
-        of the reference's `fuse_slots_streamwise`."""
-        if self.dct_impl == "aan":
-            codes, lens, viol = vlc_raw(y, cb, cr, self.qw, self.luts())  # (R, 64, NB)
-            viol = viol + slot_violations(codes, lens)
-            codes, lens = codes.transpose(1, 2), lens.transpose(1, 2)
-        else:
-            codes, lens = self.raw_slots(y, cb, cr)
-            viol = slot_violations(codes, lens)
-        r = codes.shape[0]
-        fused = fuse4(codes.reshape(r, -1), lens.reshape(r, -1))
-        return tuple(to_i32_bits(t) for t in fused), viol
 
 
 def correct_pipeline_planes(core: EncodeCore, y, cb, cr, max_slice_bytes: int,
@@ -382,6 +396,40 @@ def correct_pipeline(core: EncodeCore, rgb, max_slice_bytes: int,
         cb, cr = subsample_420(cb), subsample_420(cr)
     rgb420_passes += 1
     return correct_pipeline_planes(core, y, cb, cr, max_slice_bytes, debug_checks, first_row)
+
+
+# the raise of `_run_with_regrow` on a negated bit count (see `fetch_bits`)
+VIOLATIONS = ("invariant violations in {slices} slice(s) ({hits} total hits): VLC slot "
+              "length/masking, DCT magnitude or pack length/overlap invariant broken; see "
+              "ops.vlc_device.slot_violations and ops.cuda_pack")
+
+
+def fetch_bits(bits_dev, message: str) -> np.ndarray:
+    """The `encode.fetch_bits` stage of an encode call: the slices' bit
+    counts to the host, where it waits for the device.  A negated count
+    (the violations that debug_checks found) raises RuntimeError with
+    `message`, formatted with `slices` (how many) and `hits` (their
+    violations in all)."""
+    with stage_scope("encode.fetch_bits"):
+        bits = bits_dev.cpu().numpy()
+    if int(bits.min(initial=0)) < 0:
+        viol = -bits[bits < 0]
+        raise RuntimeError(message.format(slices=viol.size, hits=int(viol.sum())))
+    return bits
+
+
+def prefix_bytes(used: int, cap: int) -> int:
+    """How many bytes of each slice to fetch when the longest uses `used`:
+    the power of two at or above it, at least 256, at most `cap` (a few
+    sizes a run, so the host's buffers are reused)."""
+    return min(max(256, 1 << (used - 1).bit_length()), cap)
+
+
+def fetch_prefix(seg_dev, need_bits: int, cap: int) -> np.ndarray:
+    """The `encode.fetch_prefix` stage: the (B, S, cap) slice buffers'
+    first `prefix_bytes` bytes, enough for `need_bits`, to the host."""
+    with stage_scope("encode.fetch_prefix"):
+        return seg_dev[:, :, :prefix_bytes(-(-need_bits // 8), cap)].cpu().numpy()
 
 
 class TorchMPEG1IntraEncoder:
@@ -503,16 +551,7 @@ class TorchMPEG1IntraEncoder:
         msb = self.resolve_slice_bytes(mbw)
         for _attempt in range(3):
             seg_dev, bits_dev = run_once(msb)
-            with stage_scope("encode.fetch_bits"):
-                bits = bits_dev.cpu().numpy()
-            if int(bits.min(initial=0)) < 0:
-                viol = -bits[bits < 0]
-                raise RuntimeError(
-                    f"invariant violations in {viol.size} slice(s) "
-                    f"({int(viol.sum())} total hits): VLC slot length/masking, "
-                    "DCT magnitude or pack length/overlap invariant broken; see "
-                    "ops.vlc_device.slot_violations and ops.cuda_pack"
-                )
+            bits = fetch_bits(bits_dev, VIOLATIONS)
             need_bits = int(bits.max(initial=0))
             if need_bits <= 8 * msb:
                 break
@@ -525,10 +564,7 @@ class TorchMPEG1IntraEncoder:
             self.max_slice_bytes = msb
         else:
             raise OverflowError(f"slice-buffer regrow did not converge at {msb} bytes")
-        used = -(-need_bits // 8)
-        bucket = min(max(256, 1 << max(used - 1, 1).bit_length()), msb)
-        with stage_scope("encode.fetch_prefix"):
-            return seg_dev[:, :, :bucket].cpu().numpy(), bits
+        return fetch_prefix(seg_dev, need_bits, msb), bits
 
     def _run_and_assemble(self, run_once, mbw: int, disp_w: int, disp_h: int,
                           first_frame_index: int) -> bytes:

@@ -10,9 +10,14 @@ flags, so an edited source or header is rebuilt.  Nothing is built or
 loaded when this module is imported: only `load()` runs nvcc.  The host
 libraries of `io/_native.py` (g++) share the directory and `compile_all`.
 
-While a profiler records, every `*_launch` entry point is called inside a
-span of its own name (`utils.profiling.stage_scope`), so a trace names each
-kernel launch.
+Every kernel call goes through `launch`: it rejects a device other than
+CUDA, checks that the tensors are contiguous, passes their pointers with
+the device and its current stream, raises on a CUDA error and counts the
+call in `launches` under one of the names in `KERNELS` (calls on CPU
+tensors run the plain twins, launch nothing and count nothing).  While a
+profiler records, every `*_launch` entry point is called inside a span of
+its own name (`utils.profiling.stage_scope`), so a trace names each kernel
+launch.
 """
 
 from __future__ import annotations
@@ -24,8 +29,10 @@ import shutil
 import subprocess
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 
+import torch
 from torch.autograd import _profiler_enabled
 
 from ec504_imageencoder_tpu_torch.utils.profiling import stage_scope
@@ -39,6 +46,14 @@ NVCC_FLAGS = (
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# what `launch` counts a call as: its wrapper's name, and B2's checked form
+KERNELS = frozenset({
+    "vlc_fused4", "vlc_fused8", "vlc_raw", "vlc_levels4", "f32_levels", "lut_lookup",
+    "vlc_compat_slots", "vlc_compat_fused4", "compat_color", "pack_fused4",
+    "pack_fused4_checked", "pack_fused8", "pack_raw", "pack_pairs", "pack_windows", "pack_split",
+})
+# kernel launches since the last `launches.clear()`, by name in KERNELS
+launches: Counter[str] = Counter()
 # name -> (seconds from the start of its `build` call until its nvcc
 # finished, ptxas report); only for builds this process ran
 build_info: dict[str, tuple[float, str]] = {}
@@ -165,6 +180,7 @@ def load(name: str, argtypes: dict[str, list]) -> ctypes.CDLL:
     strerror = getattr(lib, f"{name}_strerror")
     strerror.argtypes = [ctypes.c_int]
     strerror.restype = ctypes.c_char_p
+    lib.name = name  # what `launch` passes to `check`
     _LIBS[name] = lib
     return lib
 
@@ -174,3 +190,35 @@ def check(lib: ctypes.CDLL, name: str, err: int) -> None:
     if err != 0:
         msg = getattr(lib, f"{name}_strerror")(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def require_cuda(device: torch.device) -> None:
+    """Raise unless `device` is a CUDA device: what the kernels run on."""
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+
+
+def launch(load, entry: str, device: torch.device, *args, count_as: str | None = None) -> None:
+    """Call the C entry point `<entry>_launch` of the library that `load()`
+    returns (a module's `load_kernel`, called after the checks) on the CUDA
+    `device`: ints and None in `args` as they are, every other argument a
+    tensor passed as its data pointer, then the device's index and current
+    stream.  Raise unless `device` is CUDA and every tensor contiguous;
+    raise on a CUDA error; count the call in `launches[count_as]` (default
+    `entry`, the wrapper's name)."""
+    require_cuda(device)
+    name = count_as or entry
+    if name not in KERNELS:
+        raise ValueError(f"{name!r} is not one of the counted kernels {sorted(KERNELS)}")
+    ptrs = []
+    for a in args:
+        if a is not None and type(a) is not int:  # a tensor (`isinstance` costs ~0.2 us)
+            if not a.is_contiguous():
+                raise ValueError(f"{entry} needs contiguous tensors")
+            a = a.data_ptr()
+        ptrs.append(a)
+    lib = load()
+    err = getattr(lib, f"{entry}_launch")(
+        *ptrs, device.index, torch.cuda.current_stream(device).cuda_stream)
+    check(lib, lib.name, err)
+    launches[name] += 1

@@ -32,9 +32,6 @@ from ec504_imageencoder_tpu_torch.ops import _build
 from ec504_imageencoder_tpu_torch.ops.vlc_device import emit_correct64
 from ec504_imageencoder_tpu_torch.utils.tables import AC_PACKED, DC_PACKED
 
-# kernel launches since the last reset (launches for CPU tensors excluded)
-launches = 0
-
 MAX_TABLE = 128
 
 _P = ctypes.c_void_p
@@ -58,7 +55,6 @@ def lut_lookup(idx, table):
     """idx: int32 tensor of any shape; table: (m,) int32, 0 < m <= 128, on the
     same device -> int32 tensor of idx's shape: table[idx] where
     0 <= idx < m, else 0."""
-    global launches
     if idx.dtype != torch.int32 or table.dtype != torch.int32:
         raise TypeError(f"idx and table must be int32, got {idx.dtype} and {table.dtype}")
     if table.dim() != 1 or not 0 < table.shape[0] <= MAX_TABLE:
@@ -67,18 +63,9 @@ def lut_lookup(idx, table):
         raise ValueError(f"table is on {table.device}, idx on {idx.device}")
     if idx.device.type == "cpu":
         return lut_lookup_plain(idx, table)
-    if idx.device.type != "cuda":
-        raise ValueError(f"unsupported device {idx.device}")
-    if not (idx.is_contiguous() and table.is_contiguous()):
-        raise ValueError("lut_lookup needs contiguous tensors")
-    lib = load_kernel()
     out = torch.empty_like(idx)
-    err = lib.lut_lookup_launch(
-        idx.data_ptr(), idx.numel(), table.data_ptr(), table.shape[0], out.data_ptr(),
-        idx.device.index, torch.cuda.current_stream(idx.device).cuda_stream,
-    )
-    _build.check(lib, "lut_lookup", err)
-    launches += 1
+    _build.launch(load_kernel, "lut_lookup", idx.device, idx, idx.numel(), table,
+                  table.shape[0], out)
     return out
 
 

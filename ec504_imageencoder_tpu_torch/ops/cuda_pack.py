@@ -52,14 +52,6 @@ from ec504_imageencoder_tpu_torch.ops.bitpack import (
     words_to_bytes,
 )
 
-# kernel launches since the last reset: B2 unchecked and checked, B6c, K1,
-# K2 (launches for CPU tensors excluded)
-launches = 0
-launches_checked = 0
-launches8 = 0
-launches_raw = 0
-launches_pairs = 0
-
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
@@ -91,9 +83,9 @@ def pack_fused4_plain(v0, v1, v2, v3, flens, max_words: int, bit_offset: int = 3
     return head + (out[2].to(torch.int32),) if checks else head
 
 
-def check_slots(vs, max_words: int, bit_offset: int, name: str) -> None:
+def check_slots(vs, max_words: int, bit_offset: int) -> None:
     """Raise unless vs (word planes, then the lengths) are int32 (n, KF)
-    tensors on one device, contiguous on a CUDA device."""
+    tensors on one device."""
     flens = vs[-1]
     if flens.dim() != 2:
         raise ValueError(f"flens must be (n, KF), got {tuple(flens.shape)}")
@@ -102,10 +94,6 @@ def check_slots(vs, max_words: int, bit_offset: int, name: str) -> None:
             raise ValueError("the word planes and flens must be int32 (n, KF) on one device")
     if max_words <= 0 or bit_offset < 0:
         raise ValueError(f"bad max_words={max_words} / bit_offset={bit_offset}")
-    if flens.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {flens.device}")
-    if flens.device.type == "cuda" and not all(t.is_contiguous() for t in vs):
-        raise ValueError(f"{name} needs contiguous tensors")
 
 
 def pack_fused4(v0, v1, v2, v3, flens, max_words: int, bit_offset: int = 38,
@@ -118,27 +106,18 @@ def pack_fused4(v0, v1, v2, v3, flens, max_words: int, bit_offset: int = 38,
     seg holds the slice bit streams MSB first from bit `bit_offset` on,
     zero elsewhere; words past max_words are dropped, and nbits is the
     true bit count including bit_offset, even when it exceeds the buffer."""
-    global launches, launches_checked
     vs = (v0, v1, v2, v3, flens)
-    check_slots(vs, max_words, bit_offset, "pack_fused4")
+    check_slots(vs, max_words, bit_offset)
     if flens.device.type == "cpu":
         return pack_fused4_plain(*vs, max_words, bit_offset, checks)
-    lib = load_kernel()
     n, kf = flens.shape
     seg = torch.empty((n, 4 * max_words), dtype=torch.uint8, device=flens.device)
     nbits = torch.empty((n,), dtype=torch.int32, device=flens.device)
     viol = torch.empty((n,), dtype=torch.int32, device=flens.device) if checks else None
-    err = lib.pack_fused4_launch(
-        *(t.data_ptr() for t in vs), n, kf, max_words, bit_offset,
-        seg.data_ptr(), nbits.data_ptr(), None if viol is None else viol.data_ptr(),
-        flens.device.index, torch.cuda.current_stream(flens.device).cuda_stream,
-    )
-    _build.check(lib, "pack_fused4", err)
-    if checks:
-        launches_checked += 1
-        return seg, nbits, viol
-    launches += 1
-    return seg, nbits
+    _build.launch(load_kernel, "pack_fused4", flens.device, *vs, n, kf, max_words,
+                  bit_offset, seg, nbits, viol,
+                  count_as="pack_fused4_checked" if checks else "pack_fused4")
+    return (seg, nbits, viol) if checks else (seg, nbits)
 
 
 def pack_fused8_plain(words, flens, max_words: int, bit_offset: int = 38):
@@ -151,25 +130,13 @@ def pack_fused8(words, flens, max_words: int, bit_offset: int = 38):
     """B6c.  words: 8 (n, KF) int32 word planes (u32 words of values of
     flens <= 256 bits, most significant first); flens (n, KF) int32 ->
     (seg (n, 4 * max_words) u8, nbits (n,) int32), as `pack_fused4`."""
-    global launches8
     vs = (*words, flens)
     if len(vs) != 9:
         raise ValueError(f"pack_fused8 takes 8 word planes, got {len(vs) - 1}")
-    check_slots(vs, max_words, bit_offset, "pack_fused8")
+    check_slots(vs, max_words, bit_offset)
     if flens.device.type == "cpu":
         return pack_fused8_plain(words, flens, max_words, bit_offset)
-    lib = load_kernel()
-    n, kf = flens.shape
-    seg = torch.empty((n, 4 * max_words), dtype=torch.uint8, device=flens.device)
-    nbits = torch.empty((n,), dtype=torch.int32, device=flens.device)
-    err = lib.pack_fused8_launch(
-        *(t.data_ptr() for t in vs), n, kf, max_words, bit_offset,
-        seg.data_ptr(), nbits.data_ptr(),
-        flens.device.index, torch.cuda.current_stream(flens.device).cuda_stream,
-    )
-    _build.check(lib, "pack_fused4", err)
-    launches8 += 1
-    return seg, nbits
+    return _launch("pack_fused8", vs, max_words, bit_offset)
 
 
 def pack_raw_plain(codes, lens, max_words: int, bit_offset: int = 38):
@@ -184,17 +151,14 @@ def pack_pairs_plain(codes, lens, max_words: int, bit_offset: int = 38):
     return words_to_bytes(out), nbits.to(torch.int32)
 
 
-def _raw_launch(entry: str, codes, lens, max_words: int, bit_offset: int):
-    lib = load_kernel()
-    n, k = lens.shape
-    seg = torch.empty((n, 4 * max_words), dtype=torch.uint8, device=lens.device)
-    nbits = torch.empty((n,), dtype=torch.int32, device=lens.device)
-    err = getattr(lib, f"{entry}_launch")(
-        codes.data_ptr(), lens.data_ptr(), n, k, max_words, bit_offset,
-        seg.data_ptr(), nbits.data_ptr(),
-        lens.device.index, torch.cuda.current_stream(lens.device).cuda_stream,
-    )
-    _build.check(lib, "pack_fused4", err)
+def _launch(entry: str, vs, max_words: int, bit_offset: int):
+    """Launch `entry` on the (n, K) slot planes `vs` on a CUDA device ->
+    (seg, nbits)."""
+    n, k = vs[-1].shape
+    dev = vs[-1].device
+    seg = torch.empty((n, 4 * max_words), dtype=torch.uint8, device=dev)
+    nbits = torch.empty((n,), dtype=torch.int32, device=dev)
+    _build.launch(load_kernel, entry, dev, *vs, n, k, max_words, bit_offset, seg, nbits)
     return seg, nbits
 
 
@@ -202,21 +166,15 @@ def pack_raw(codes, lens, max_words: int, bit_offset: int = 38):
     """K1.  (n, K) int32 raw codes (u32 bits of <= 32-bit values) and
     lengths -> (seg (n, 4 * max_words) u8, nbits (n,) int32), as
     `pack_fused4`."""
-    global launches_raw
-    check_slots((codes, lens), max_words, bit_offset, "pack_raw")
+    check_slots((codes, lens), max_words, bit_offset)
     if lens.device.type == "cpu":
         return pack_raw_plain(codes, lens, max_words, bit_offset)
-    out = _raw_launch("pack_raw", codes, lens, max_words, bit_offset)
-    launches_raw += 1
-    return out
+    return _launch("pack_raw", (codes, lens), max_words, bit_offset)
 
 
 def pack_pairs(codes, lens, max_words: int, bit_offset: int = 38):
     """K2: `pack_raw`'s function, the codes fused 2:1 as they are loaded."""
-    global launches_pairs
-    check_slots((codes, lens), max_words, bit_offset, "pack_pairs")
+    check_slots((codes, lens), max_words, bit_offset)
     if lens.device.type == "cpu":
         return pack_pairs_plain(codes, lens, max_words, bit_offset)
-    out = _raw_launch("pack_pairs", codes, lens, max_words, bit_offset)
-    launches_pairs += 1
-    return out
+    return _launch("pack_pairs", (codes, lens), max_words, bit_offset)

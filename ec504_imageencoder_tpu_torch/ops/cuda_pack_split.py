@@ -35,11 +35,6 @@ import torch
 from ec504_imageencoder_tpu_torch.ops import _build
 from ec504_imageencoder_tpu_torch.ops.cuda_pack import check_slots, pack_raw_plain
 
-# kernel launches since the last reset: K3, K4 (launches for CPU tensors
-# excluded)
-launches_windows = 0
-launches_split = 0
-
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LLP = ctypes.POINTER(ctypes.c_longlong)
@@ -59,9 +54,10 @@ def load_kernel():
 def _launch(entry: str, codes, lens, max_words: int, bit_offset: int):
     """Run K3 ("pack_windows") or K4 ("pack_split") on CUDA tensors with
     the scratch it needs: K3's chunk totals, K4's status words."""
-    lib = load_kernel()
     n, k = lens.shape
     dev = lens.device
+    _build.require_cuda(dev)  # before the library is loaded for the scratch sizes
+    lib = load_kernel()
     windows_bytes, split_bytes = ctypes.c_longlong(), ctypes.c_longlong()
     _build.check(lib, "pack_split", lib.pack_split_scratch(
         n, k, ctypes.byref(windows_bytes), ctypes.byref(split_bytes)))
@@ -69,12 +65,8 @@ def _launch(entry: str, codes, lens, max_words: int, bit_offset: int):
     scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
     seg = torch.empty((n, 4 * max_words), dtype=torch.uint8, device=dev)
     nbits = torch.empty((n,), dtype=torch.int32, device=dev)
-    err = getattr(lib, f"{entry}_launch")(
-        codes.data_ptr(), lens.data_ptr(), n, k, max_words, bit_offset,
-        scratch.data_ptr(), seg.data_ptr(), nbits.data_ptr(),
-        dev.index, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(lib, "pack_split", err)
+    _build.launch(load_kernel, entry, dev, codes, lens, n, k, max_words, bit_offset, scratch, seg,
+                  nbits)
     return seg, nbits
 
 
@@ -82,22 +74,16 @@ def pack_windows(codes, lens, max_words: int, bit_offset: int = 38):
     """K3.  (n, K) int32 raw codes (u32 bits of <= 32-bit values) and
     lengths -> (seg (n, 4 * max_words) u8, nbits (n,) int32), as
     `cuda_pack.pack_raw`."""
-    global launches_windows
-    check_slots((codes, lens), max_words, bit_offset, "pack_windows")
+    check_slots((codes, lens), max_words, bit_offset)
     if lens.device.type == "cpu":
         return pack_raw_plain(codes, lens, max_words, bit_offset)
-    out = _launch("pack_windows", codes, lens, max_words, bit_offset)
-    launches_windows += 1
-    return out
+    return _launch("pack_windows", codes, lens, max_words, bit_offset)
 
 
 def pack_split(codes, lens, max_words: int, bit_offset: int = 38):
     """K4: `pack_windows`'s function in one pass, many blocks per slice
     chained by a decoupled look-back."""
-    global launches_split
-    check_slots((codes, lens), max_words, bit_offset, "pack_split")
+    check_slots((codes, lens), max_words, bit_offset)
     if lens.device.type == "cpu":
         return pack_raw_plain(codes, lens, max_words, bit_offset)
-    out = _launch("pack_split", codes, lens, max_words, bit_offset)
-    launches_split += 1
-    return out
+    return _launch("pack_split", codes, lens, max_words, bit_offset)

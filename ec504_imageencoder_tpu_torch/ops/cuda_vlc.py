@@ -8,9 +8,10 @@ raw slots, `cuda_vlc_raw`) replaces the Pallas kernels
 the reference's EC504_FUSE=8 route), each with the blockize in front of
 it and `fused_stack_to_stream` / `fused8_stack_to_stream` behind it.
 `vlc_fused4_plain` is B1's plain PyTorch twin, composed from the port's
-colour-free ops: blockize, AAN DCT, quantization, zigzag, DC prediction,
-64-slot emission and 4:1 fusion; `vlc_fused8_plain` adds the third fusion
-level `bitpack.fuse8`.
+colour-free ops on one plain pipeline that the other correct-mode twins
+share: `levels_plain` (blockize, DCT, quantization, zigzag, DC
+prediction), `level_slots` (64-slot emission) and `fuse4_i32` (4:1
+fusion); `vlc_fused8_plain` adds the third fusion level `bitpack.fuse8`.
 
 `vlc_fused4` and `vlc_fused8` run the twin for CPU tensors and the kernel
 for CUDA tensors; there is no other route.
@@ -33,11 +34,6 @@ from ec504_imageencoder_tpu_torch.ops.vlc_device import (
 )
 from ec504_imageencoder_tpu_torch.ops.zigzag import zigzag_scan
 from ec504_imageencoder_tpu_torch.utils import tables
-
-# kernel launches since the last reset (launches for CPU tensors excluded):
-# B1 (vlc_fused4) and B6b (vlc_fused8)
-launches = 0
-launches8 = 0
 
 MAX_WIDTH = 4096  # the kernel keeps one slice's DC values in shared memory
 
@@ -107,33 +103,58 @@ def blockize(y, cb, cr) -> torch.Tensor:
     return torch.cat([luma, chroma(cb), chroma(cr)], dim=3)
 
 
+def coeff_levels(f, qw, zigzag):
+    """(B, mbh, mbw, 6, 8, 8) DCT coefficients -> (levels (B * mbh, mbw * 6,
+    64) int32, zigzag order, slot 0 the absolute quantized DC; preds
+    (B * mbh, mbw * 6) int32 DC predictors)."""
+    bsz, mbh, mbw = f.shape[:3]
+    dc, lvl = quantize_intra(f, qw)
+    zz = zigzag_scan(lvl, zigzag)
+    lane = torch.arange(64, device=f.device)
+    zz = torch.where(lane == 0, dc[..., None], zz)
+    r = bsz * mbh
+    return zz.reshape(r, mbw * 6, 64), dc_predictors(dc).reshape(r, mbw * 6)
+
+
+def levels_plain(y, cb, cr, qw, zigzag, dct):
+    """Padded planes -> `coeff_levels` of the DCT `dct` (`matmul_dct` or
+    `aan_dct`) of their blocks, in plain PyTorch: the reference's
+    `_generic_pipeline_from_planes` up to the emission."""
+    return coeff_levels(dct(blockize(y, cb, cr)), qw, zigzag)
+
+
+def level_slots(levels, preds, luts: Luts):
+    """The emission step of the correct-mode twins: `coeff_levels`'
+    (levels, preds) -> int64 (codes, lens) (R, NB, 64) in stream order,
+    MB header and EOB folded in."""
+    r, nb, _ = levels.shape
+    comp = torch.arange(nb, device=levels.device).expand(r, nb) % 6
+    return block_streams_correct64(
+        levels, preds, comp < 4, comp == 0,
+        luts.dc_code, luts.dc_len, luts.ac_code, luts.ac_len,
+    )
+
+
+def fuse4_i32(codes, lens):
+    """(R, ...) u32 codes and lengths in stream order -> the 4:1-fused slots
+    (v0, v1, v2, v3, flens) (R, K / 4) int32: B1's output format."""
+    r = codes.shape[0]
+    return tuple(to_i32_bits(t) for t in fuse4(codes.reshape(r, -1), lens.reshape(r, -1)))
+
+
 def block_slots(y, cb, cr, qw, luts: Luts):
     """The plain integer-DCT pipeline of B1 and B6a: padded planes ->
     (codes, lens) int64 (R, NB, 64) per slice row in stream order, MB
     header and EOB folded in, and the AAN coefficients (B, mbh, mbw, 6,
     8, 8) int32."""
-    blocks = blockize(y, cb, cr)
-    bsz, mbh, mbw = blocks.shape[:3]
-    f = aan_dct(blocks)
-    dc, lvl = quantize_intra(f, qw)
-    zz = zigzag_scan(lvl, luts.zigzag)
-    lane = torch.arange(64, device=y.device)
-    zz = torch.where(lane == 0, dc[..., None], zz)
-    comp = torch.arange(6, device=y.device)
-    codes, lens = block_streams_correct64(
-        zz, dc_predictors(dc), (comp < 4).expand(dc.shape), (comp == 0).expand(dc.shape),
-        luts.dc_code, luts.dc_len, luts.ac_code, luts.ac_len,
-    )
-    r = bsz * mbh
-    return codes.reshape(r, -1, 64), lens.reshape(r, -1, 64), f
+    f = aan_dct(blockize(y, cb, cr))
+    return (*level_slots(*coeff_levels(f, qw, luts.zigzag), luts), f)
 
 
 def vlc_fused4_plain(y, cb, cr, qw, luts: Luts):
     """Plain twin of the kernel: same arguments, same outputs."""
     codes, lens, _ = block_slots(y, cb, cr, qw, luts)
-    r = codes.shape[0]
-    fused = fuse4(codes.reshape(r, -1), lens.reshape(r, -1))
-    return tuple(to_i32_bits(t) for t in fused)
+    return fuse4_i32(codes, lens)
 
 
 def vlc_fused8_plain(y, cb, cr, qw, luts: Luts):
@@ -184,21 +205,11 @@ def _launch(fuse: int, y, cb, cr, qw, luts: Luts) -> torch.Tensor:
     """Launch the kernel at fusion level `fuse` on CUDA tensors ->
     (fuse + 1, R, NB * 64 / fuse) int32: the word planes, then the
     lengths."""
-    name = f"vlc_fused{fuse}"
-    if y.device.type != "cuda":
-        raise ValueError(f"unsupported device {y.device}")
-    if not all(t.is_contiguous() for t in (y, cb, cr, qw, *luts)):
-        raise ValueError(f"{name} needs contiguous tensors")
-    lib = load_kernel()
     bsz, h, w = y.shape
     out = torch.empty((fuse + 1, bsz * (h // 16), (w // 16) * 6 * (64 // fuse)),
                       dtype=torch.int32, device=y.device)
-    err = getattr(lib, f"{name}_launch")(
-        *(t.data_ptr() for t in (y, cb, cr)), bsz, h, w,
-        *(t.data_ptr() for t in (qw, *luts)), out.data_ptr(),
-        y.device.index, torch.cuda.current_stream(y.device).cuda_stream,
-    )
-    _build.check(lib, "vlc_fused4", err)
+    _build.launch(load_kernel, f"vlc_fused{fuse}", y.device, y, cb, cr, bsz, h, w,
+                  qw, *luts, out)
     return out
 
 
@@ -208,13 +219,10 @@ def vlc_fused4(y, cb, cr, qw, luts: Luts):
     (v0, v1, v2, v3, flens), each (B * H/16, 6 * W/16 * 16) int32: per
     slice, the fused slots of its blocks in stream order; v0..v3 hold the
     u32 words (most significant first) of values of flens <= 128 bits."""
-    global launches
     check_planes(y, cb, cr, qw, luts)
     if y.device.type == "cpu":
         return vlc_fused4_plain(y, cb, cr, qw, luts)
-    out = _launch(4, y, cb, cr, qw, luts)
-    launches += 1
-    return tuple(out.unbind(0))
+    return tuple(_launch(4, y, cb, cr, qw, luts).unbind(0))
 
 
 def vlc_fused8(y, cb, cr, qw, luts: Luts):
@@ -223,10 +231,8 @@ def vlc_fused8(y, cb, cr, qw, luts: Luts):
     slice, the 8:1-fused slots of its blocks in stream order; w0..w7 hold
     the u32 words (most significant first) of values of flens <= 256
     bits."""
-    global launches8
     check_planes(y, cb, cr, qw, luts)
     if y.device.type == "cpu":
         return vlc_fused8_plain(y, cb, cr, qw, luts)
     planes = _launch(8, y, cb, cr, qw, luts).unbind(0)
-    launches8 += 1
     return planes[:8], planes[8]

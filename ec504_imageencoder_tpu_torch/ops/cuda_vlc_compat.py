@@ -36,18 +36,11 @@ import ctypes
 import torch
 
 from ec504_imageencoder_tpu_torch.ops import _build
-from ec504_imageencoder_tpu_torch.ops.bitpack import fuse4
-from ec504_imageencoder_tpu_torch.ops.cuda_vlc import Luts, check_matrix, to_i32_bits
+from ec504_imageencoder_tpu_torch.ops.cuda_vlc import Luts, check_matrix, fuse4_i32, to_i32_bits
 from ec504_imageencoder_tpu_torch.ops.dct import aan_dct
 from ec504_imageencoder_tpu_torch.ops.quant import quantize
 from ec504_imageencoder_tpu_torch.ops.vlc_device import block_streams_compat
 from ec504_imageencoder_tpu_torch.ops.zigzag import zigzag_scan
-
-# kernel launches since the last reset, per entry point (launches for CPU
-# tensors excluded)
-launches_slots = 0
-launches_fused4 = 0
-launches_color = 0
 
 # the compat geometry (the reference's models/encoder.py, which the port's
 # models/encoder.py re-exports): the C encoder encodes a 96-column x
@@ -126,9 +119,7 @@ def vlc_compat_slots_plain(y, cb, cr, scaled_q, luts: Luts):
 
 def vlc_compat_fused4_plain(y, cb, cr, scaled_q, luts: Luts):
     """Plain twin of B4b: same arguments, same outputs."""
-    codes, lens = stream_slots(compat_levels(y, cb, cr, scaled_q, luts), luts)
-    r = codes.shape[0]
-    return tuple(to_i32_bits(t) for t in fuse4(codes.reshape(r, -1), lens.reshape(r, -1)))
+    return fuse4_i32(*stream_slots(compat_levels(y, cb, cr, scaled_q, luts), luts))
 
 
 def _check(y, cb, cr, scaled_q, luts: Luts) -> None:
@@ -146,19 +137,10 @@ def _check(y, cb, cr, scaled_q, luts: Luts) -> None:
     luts.check(y.device)
 
 
-def _launch(entry: str, y, cb, cr, scaled_q, luts: Luts, outs) -> None:
-    tensors = (y, cb, cr, scaled_q, *luts)
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{entry} needs contiguous tensors")
-    lib = load_kernel()
+def _launch(entry: str, y, cb, cr, scaled_q, luts: Luts, out: torch.Tensor) -> None:
     bsz, h, w = y.shape
-    err = getattr(lib, entry)(
-        *(t.data_ptr() for t in (y, cb, cr)), bsz, h, w,
-        *(t.data_ptr() for t in (scaled_q, *luts)),
-        *(t.data_ptr() for t in outs),
-        y.device.index, torch.cuda.current_stream(y.device).cuda_stream,
-    )
-    _build.check(lib, "vlc_compat", err)
+    _build.launch(load_kernel, entry, y.device, y, cb, cr, bsz, h, w, scaled_q, *luts,
+                  *out.unbind(0))
 
 
 def vlc_compat_slots(y, cb, cr, scaled_q, luts: Luts):
@@ -167,15 +149,11 @@ def vlc_compat_slots(y, cb, cr, scaled_q, luts: Luts):
     `Luts.compat` -> (codes, lens), each (B * 6, 64, 54) int32: per slice
     row (frame-major, 6 column bands), slot k of block n at [row, k, n];
     codes hold no bits above their length."""
-    global launches_slots
     _check(y, cb, cr, scaled_q, luts)
     if y.device.type == "cpu":
         return vlc_compat_slots_plain(y, cb, cr, scaled_q, luts)
-    if y.device.type != "cuda":
-        raise ValueError(f"unsupported device {y.device}")
     out = torch.empty((2, y.shape[0] * N_SLICES, 64, NB), dtype=torch.int32, device=y.device)
-    _launch("vlc_compat_slots_launch", y, cb, cr, scaled_q, luts, out.unbind(0))
-    launches_slots += 1
+    _launch("vlc_compat_slots", y, cb, cr, scaled_q, luts, out)
     return tuple(out.unbind(0))
 
 
@@ -183,15 +161,11 @@ def vlc_compat_fused4(y, cb, cr, scaled_q, luts: Luts):
     """B4b.  Same inputs as `vlc_compat_slots` -> (v0, v1, v2, v3, flens),
     each (B * 6, 54 * 16) int32: per slice row, the fused slots of its
     blocks in stream order (the format of B1)."""
-    global launches_fused4
     _check(y, cb, cr, scaled_q, luts)
     if y.device.type == "cpu":
         return vlc_compat_fused4_plain(y, cb, cr, scaled_q, luts)
-    if y.device.type != "cuda":
-        raise ValueError(f"unsupported device {y.device}")
     out = torch.empty((5, y.shape[0] * N_SLICES, NB * 16), dtype=torch.int32, device=y.device)
-    _launch("vlc_compat_fused4_launch", y, cb, cr, scaled_q, luts, out.unbind(0))
-    launches_fused4 += 1
+    _launch("vlc_compat_fused4", y, cb, cr, scaled_q, luts, out)
     return tuple(out.unbind(0))
 
 
@@ -209,22 +183,12 @@ def compat_color(rgb: torch.Tensor) -> torch.Tensor:
     """The compat colour.  rgb: (B, H, W, 3) u8 frames, contiguous ->
     (3, B, H, W) u8, one buffer that unpacks into the Y, Cb and Cr plane
     views, byte-equal to `rgb_to_ycbcr_exact`'s planes."""
-    global launches_color
     if rgb.dim() != 4 or rgb.shape[-1] != 3:
         raise ValueError(f"expected (B, H, W, 3) frames, got {tuple(rgb.shape)}")
     if rgb.dtype != torch.uint8:
         raise TypeError(f"frames must be uint8, got {rgb.dtype}")
     if rgb.device.type == "cpu":
         return compat_color_plain(rgb)
-    if rgb.device.type != "cuda":
-        raise ValueError(f"unsupported device {rgb.device}")
-    if not rgb.is_contiguous():
-        raise ValueError("compat_color_launch needs contiguous frames")
     out = torch.empty((3, *rgb.shape[:3]), dtype=torch.uint8, device=rgb.device)
-    lib = load_kernel()
-    err = lib.compat_color_launch(rgb.data_ptr(), out[0].numel(), out.data_ptr(),
-                                  rgb.device.index,
-                                  torch.cuda.current_stream(rgb.device).cuda_stream)
-    _build.check(lib, "vlc_compat", err)
-    launches_color += 1
+    _build.launch(load_kernel, "compat_color", rgb.device, rgb, out[0].numel(), out)
     return out

@@ -8,15 +8,15 @@ One CUDA source (`csrc/vlc_levels4.cu`) with two entry points:
   `ec504_imageencoder_tpu/ops/pallas_vlc.py::_vlc_kernel` (launched by
   `vlc_slots_tpu`) together with `fuse_slots_streamwise` behind it: it
   writes B1's output format, ready for the pack kernel B2.
-  `vlc_levels4_plain` is its plain PyTorch twin (`block_streams_correct64`
-  and `fuse4`).
+  `vlc_levels4_plain` is its plain PyTorch twin (`cuda_vlc.level_slots`
+  and `fuse4_i32`).
 * `f32_levels` replaces no Pallas kernel: the reference computes the
   levels with an XLA einsum and elementwise ops.  It reads the padded
   planes and writes what `models/mpeg1.py::plane_levels` returns for
   `dct_impl="f32"`: blockize, the f32 `matmul_dct` in numpy's einsum
   order (every product and sum rounded on its own, no FMA), quantize,
   zigzag and DC prediction, in one launch.  `f32_levels_plain` is its
-  plain PyTorch twin, those ops themselves (`levels_plain` with
+  plain PyTorch twin, those ops themselves (`cuda_vlc.levels_plain` with
   `matmul_dct`).
 
 Each wrapper runs the twin for CPU tensors and the kernel for CUDA
@@ -30,24 +30,16 @@ import ctypes
 import torch
 
 from ec504_imageencoder_tpu_torch.ops import _build
-from ec504_imageencoder_tpu_torch.ops.bitpack import fuse4
 from ec504_imageencoder_tpu_torch.ops.cuda_vlc import (
     MAX_WIDTH,
     Luts,
-    blockize,
     check_matrix,
     check_plane_shapes,
-    to_i32_bits,
+    fuse4_i32,
+    level_slots,
+    levels_plain,
 )
 from ec504_imageencoder_tpu_torch.ops.dct import matmul_dct
-from ec504_imageencoder_tpu_torch.ops.quant import quantize_intra
-from ec504_imageencoder_tpu_torch.ops.vlc_device import block_streams_correct64, dc_predictors
-from ec504_imageencoder_tpu_torch.ops.zigzag import zigzag_scan
-
-# kernel launches since the last reset, per entry point (launches for CPU
-# tensors excluded): B3 (vlc_levels4) and the f32 levels (f32_levels)
-launches = 0
-launches_levels = 0
 
 MAX_NB = MAX_WIDTH // 16 * 6
 
@@ -66,14 +58,7 @@ def load_kernel():
 
 def vlc_levels4_plain(levels, preds, luts: Luts):
     """Plain twin of the kernel: same arguments, same outputs."""
-    r, nb, _ = levels.shape
-    comp = torch.arange(nb, device=levels.device).expand(r, nb) % 6
-    codes, lens = block_streams_correct64(
-        levels, preds, comp < 4, comp == 0,
-        luts.dc_code, luts.dc_len, luts.ac_code, luts.ac_len,
-    )
-    fused = fuse4(codes.reshape(r, -1), lens.reshape(r, -1))
-    return tuple(to_i32_bits(t) for t in fused)
+    return fuse4_i32(*level_slots(levels, preds, luts))
 
 
 def _check(levels, preds, luts: Luts) -> None:
@@ -98,45 +83,16 @@ def vlc_levels4(levels, preds, luts: Luts):
     preds (R, NB) int32 DC predictors ->
     (v0, v1, v2, v3, flens), each (R, NB * 16) int32: per slice row, the
     fused slots of its blocks in stream order (the format of B1)."""
-    global launches
     _check(levels, preds, luts)
     if levels.device.type == "cpu":
         return vlc_levels4_plain(levels, preds, luts)
-    if levels.device.type != "cuda":
-        raise ValueError(f"unsupported device {levels.device}")
-    tensors = (levels, preds, *luts)
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("vlc_levels4 needs contiguous tensors")
     if levels.data_ptr() % 16:
         raise ValueError("vlc_levels4 reads levels as 16-byte vectors: misaligned tensor")
-    lib = load_kernel()
     r, nb, _ = levels.shape
     out = torch.empty((5, r, nb * 16), dtype=torch.int32, device=levels.device)
-    err = lib.vlc_levels4_launch(
-        levels.data_ptr(), preds.data_ptr(), r, nb,
-        *(t.data_ptr() for t in luts[1:]),
-        *(out[i].data_ptr() for i in range(5)),
-        levels.device.index, torch.cuda.current_stream(levels.device).cuda_stream,
-    )
-    _build.check(lib, "vlc_levels4", err)
-    launches += 1
+    _build.launch(load_kernel, "vlc_levels4", levels.device, levels, preds, r, nb,
+                  *luts[1:], *out.unbind(0))
     return tuple(out.unbind(0))
-
-
-def levels_plain(y, cb, cr, qw, zigzag, dct):
-    """Padded planes -> (levels (B * mbh, mbw * 6, 64) int32, zigzag order,
-    slot 0 the absolute quantized DC; preds (B * mbh, mbw * 6) int32 DC
-    predictors) in plain PyTorch, with the DCT `dct` (`matmul_dct` or
-    `aan_dct`): the reference's `_generic_pipeline_from_planes` up to the
-    emission."""
-    blocks = blockize(y, cb, cr)                       # (B, mbh, mbw, 6, 8, 8)
-    bsz, mbh, mbw = blocks.shape[:3]
-    dc, lvl = quantize_intra(dct(blocks), qw)
-    zz = zigzag_scan(lvl, zigzag)
-    lane = torch.arange(64, device=y.device)
-    zz = torch.where(lane == 0, dc[..., None], zz)
-    r = bsz * mbh
-    return zz.reshape(r, mbw * 6, 64), dc_predictors(dc).reshape(r, mbw * 6)
 
 
 def f32_levels_plain(y, cb, cr, qw, zigzag):
@@ -160,26 +116,15 @@ def f32_levels(y, cb, cr, qw, zigzag):
     (levels (B * H/16, W/16 * 6, 64) int32, zigzag order, slot 0 the
     absolute quantized DC; preds (B * H/16, W/16 * 6) int32 DC
     predictors): `plane_levels` with the f32 DCT, the input of B3."""
-    global launches_levels
     _check_planes(y, cb, cr, qw, zigzag)
     if y.device.type == "cpu":
         return f32_levels_plain(y, cb, cr, qw, zigzag)
-    if y.device.type != "cuda":
-        raise ValueError(f"unsupported device {y.device}")
-    if not all(t.is_contiguous() for t in (y, cb, cr, qw, zigzag)):
-        raise ValueError("f32_levels needs contiguous tensors")
     if any(t.data_ptr() % 8 for t in (y, cb, cr)):
         raise ValueError("f32_levels reads pixel rows as 8-byte words: misaligned plane")
-    lib = load_kernel()
     bsz, h, w = y.shape
     r, nb = bsz * (h // 16), (w // 16) * 6
     levels = torch.empty((r, nb, 64), dtype=torch.int32, device=y.device)
     preds = torch.empty((r, nb), dtype=torch.int32, device=y.device)
-    err = lib.f32_levels_launch(
-        *(t.data_ptr() for t in (y, cb, cr)), bsz, h, w, qw.data_ptr(), zigzag.data_ptr(),
-        levels.data_ptr(), preds.data_ptr(),
-        y.device.index, torch.cuda.current_stream(y.device).cuda_stream,
-    )
-    _build.check(lib, "vlc_levels4", err)
-    launches_levels += 1
+    _build.launch(load_kernel, "f32_levels", y.device, y, cb, cr, bsz, h, w, qw, zigzag,
+                  levels, preds)
     return levels, preds

@@ -20,9 +20,6 @@ import torch
 from ec504_imageencoder_tpu_torch.ops import _build, cuda_vlc
 from ec504_imageencoder_tpu_torch.ops.cuda_vlc import Luts, block_slots, check_planes, to_i32_bits
 
-# kernel launches since the last reset (launches for CPU tensors excluded)
-launches = 0
-
 FMAX = 1 << 19  # the guard: the reference's quantizer is exact below this |F|
 
 
@@ -44,25 +41,13 @@ def vlc_raw(y, cb, cr, qw, luts: Luts):
     none above their length on healthy input), and dct_viol (B * H/16,)
     int32, the blocks of each row whose largest |AAN coefficient| reaches
     2^19 (0 for any u8 input)."""
-    global launches
     check_planes(y, cb, cr, qw, luts)
     if y.device.type == "cpu":
         return vlc_raw_plain(y, cb, cr, qw, luts)
-    if y.device.type != "cuda":
-        raise ValueError(f"unsupported device {y.device}")
-    tensors = (y, cb, cr, qw, *luts)
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("vlc_raw needs contiguous tensors")
-    lib = cuda_vlc.load_kernel()
     bsz, h, w = y.shape
     r, nb = bsz * (h // 16), (w // 16) * 6
     out = torch.empty((2, r, 64, nb), dtype=torch.int32, device=y.device)
     dct_viol = torch.zeros((r,), dtype=torch.int32, device=y.device)  # the kernel adds to it
-    err = lib.vlc_raw_launch(
-        *(t.data_ptr() for t in (y, cb, cr)), bsz, h, w,
-        *(t.data_ptr() for t in (qw, *luts)), out.data_ptr(), dct_viol.data_ptr(),
-        y.device.index, torch.cuda.current_stream(y.device).cuda_stream,
-    )
-    _build.check(lib, "vlc_fused4", err)
-    launches += 1
+    _build.launch(cuda_vlc.load_kernel, "vlc_raw", y.device, y, cb, cr, bsz, h, w,
+                  qw, *luts, out, dct_viol)
     return out[0], out[1], dct_viol

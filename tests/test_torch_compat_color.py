@@ -26,7 +26,7 @@ import torch
 
 from ec504_imageencoder_tpu_torch.models import encoder
 from ec504_imageencoder_tpu_torch.models.encoder import encode_compat
-from ec504_imageencoder_tpu_torch.ops import color, cuda_vlc_compat
+from ec504_imageencoder_tpu_torch.ops import _build, color
 from ec504_imageencoder_tpu_torch.ops.cuda_vlc_compat import compat_color
 
 GOLDEN = Path(__file__).resolve().parent / "golden"
@@ -98,10 +98,10 @@ def cuda():
 @pytest.mark.requires_cuda
 def test_kernel_equals_host_colour_on_every_triple(cuda):
     rgb = _all_triples()
-    before = cuda_vlc_compat.launches_color
+    before = _build.launches["compat_color"]
     planes = compat_color(torch.from_numpy(rgb).to(cuda))
     torch.cuda.synchronize()
-    assert cuda_vlc_compat.launches_color == before + 1
+    assert _build.launches["compat_color"] == before + 1
     _check_planes(planes, rgb)
 
 
@@ -171,9 +171,9 @@ def test_kernel_rejects_a_strided_view(cuda):
 @pytest.mark.requires_cuda
 def test_encode_compat_on_the_card_is_golden(cuda):
     frames, mpeg, md5s = _golden()
-    before = cuda_vlc_compat.launches_color
+    before = _build.launches["compat_color"]
     got, dumps = encode_compat(frames, 12, device=cuda)
-    assert cuda_vlc_compat.launches_color == before + 1
+    assert _build.launches["compat_color"] == before + 1
     assert got == mpeg
     assert [hashlib.md5(d).hexdigest() for d in dumps] == [
         md5s[f"image_{i + 1}.bit"] for i in range(len(frames))]
@@ -185,10 +185,10 @@ def test_encode_compat_on_the_card_is_golden(cuda):
 def test_encode_compat_counts_one_colour_launch_a_call(cuda, debug_checks):
     frames = np.random.default_rng(11).integers(0, 256, (3, 150, 101, 3), dtype=np.uint8)
     want = encode_compat(frames, 12, device="cpu", debug_checks=debug_checks)
-    before = cuda_vlc_compat.launches_color
+    before = _build.launches["compat_color"]
     for i in range(3):
         assert encode_compat(frames, 12, device=cuda, debug_checks=debug_checks) == want
-        assert cuda_vlc_compat.launches_color == before + i + 1
+        assert _build.launches["compat_color"] == before + i + 1
 
 
 @pytest.mark.requires_cuda

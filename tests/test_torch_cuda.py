@@ -35,6 +35,7 @@ from ec504_imageencoder_tpu_torch.models import mpeg1
 from ec504_imageencoder_tpu_torch.models.encoder import encode_compat
 from ec504_imageencoder_tpu_torch.models.mpeg1 import TorchMPEG1IntraEncoder, plane_levels
 from ec504_imageencoder_tpu_torch.ops import (
+    _build,
     bitpack,
     cuda_lut,
     cuda_pack,
@@ -163,9 +164,9 @@ def test_pack_kernel_matches_twin(cuda, max_words, kf, unaligned):
 def test_launch_counts_and_encoder_bytes(cuda):
     rng = np.random.default_rng(3)
     frames = rng.integers(0, 256, (2, 40, 56, 3), dtype=np.uint8)
-    cuda_vlc.launches = cuda_pack.launches = 0
+    _build.launches.clear()
     got = TorchMPEG1IntraEncoder(quality=50, max_slice_bytes=2560, device=cuda).encode(frames)
-    assert cuda_vlc.launches > 0 and cuda_pack.launches > 0
+    assert _build.launches["vlc_fused4"] > 0 and _build.launches["pack_fused4"] > 0
     want = MPEG1IntraEncoder(quality=50, max_slice_bytes=2560, backend="numpy").encode(frames)
     assert got == want
     assert got == _cpu_encode(frames, quality=50, max_slice_bytes=2560)
@@ -278,21 +279,21 @@ def test_compat_kernels_repeat_and_run_on_a_side_stream(cuda):
 def test_high_quality_and_compat_encoders(cuda, tmp_path):
     rng = np.random.default_rng(4)
     frames = rng.integers(0, 256, (2, 40, 56, 3), dtype=np.uint8)
-    cuda_vlc.launches = cuda_vlc_levels.launches = cuda_pack.launches = 0
+    _build.launches.clear()
     got = TorchMPEG1IntraEncoder(quality=85, device=cuda).encode(frames)
-    assert cuda_vlc_levels.launches > 0 and cuda_pack.launches > 0 and cuda_vlc.launches == 0
+    assert _build.launches["vlc_levels4"] > 0 and _build.launches["pack_fused4"] > 0
+    assert _build.launches["vlc_fused4"] == 0
     assert got == MPEG1IntraEncoder(quality=85, backend="numpy").encode(frames)
     assert got == _cpu_encode(frames, quality=85)
 
     frames = rng.integers(0, 256, (3, 150, 101, 3), dtype=np.uint8)
-    cuda_vlc_compat.launches_fused4 = cuda_vlc_compat.launches_slots = 0
-    cuda_vlc_compat.launches_color = 0
+    _build.launches.clear()
     want = encode_compat_reference(frames, 12, backend="numpy")
     assert encode_compat(frames, 12, device="cpu") == want
     assert encode_compat(frames, 12, device=cuda) == want
     assert encode_compat(frames, 12, device=cuda, debug_checks=True) == want
-    assert cuda_vlc_compat.launches_fused4 == cuda_vlc_compat.launches_slots == 1
-    assert cuda_vlc_compat.launches_color == 2
+    assert _build.launches["vlc_compat_fused4"] == _build.launches["vlc_compat_slots"] == 1
+    assert _build.launches["compat_color"] == 2
 
 
 def test_new_wrappers_reject_bad_input(cuda):
@@ -387,15 +388,15 @@ def test_debug_checks_encoder(cuda, monkeypatch):
     slot violation raises."""
     rng = np.random.default_rng(6)
     frames = rng.integers(0, 256, (2, 40, 56, 3), dtype=np.uint8)
-    for quality, kernel in ((50, cuda_vlc_raw), (85, cuda_lut)):
-        cuda_vlc.launches = cuda_vlc_levels.launches = cuda_vlc_raw.launches = 0
-        cuda_lut.launches = cuda_pack.launches = cuda_pack.launches_checked = 0
+    for quality, kernel in ((50, "vlc_raw"), (85, "lut_lookup")):
+        _build.launches.clear()
         enc = TorchMPEG1IntraEncoder(quality=quality, debug_checks=True, device=cuda)
         got = enc.encode(frames)
         assert got == MPEG1IntraEncoder(quality=quality, backend="numpy").encode(frames)
         assert got == _cpu_encode(frames, quality=quality)
-        assert kernel.launches > 0 and cuda_pack.launches_checked > 0
-        assert cuda_vlc.launches == cuda_vlc_levels.launches == cuda_pack.launches == 0
+        assert _build.launches[kernel] > 0 and _build.launches["pack_fused4_checked"] > 0
+        assert (_build.launches["vlc_fused4"] == _build.launches["vlc_levels4"]
+                == _build.launches["pack_fused4"] == 0)
 
     def corrupt(*args):
         codes, lens, viol = cuda_vlc_raw.vlc_raw(*args)
@@ -479,22 +480,22 @@ def test_fuse8_encoder(cuda):
     encoder's), through B6b and B6c, never B1 or the unchecked B2; a
     forced regrow lands."""
     frames = np.random.default_rng(8).integers(0, 256, (2, 40, 56, 3), dtype=np.uint8)
-    cuda_vlc.launches = cuda_pack.launches = cuda_vlc.launches8 = cuda_pack.launches8 = 0
+    _build.launches.clear()
     enc = TorchMPEG1IntraEncoder(quality=50, fuse=8, max_slice_bytes=2560, device=cuda)
     got = enc.encode(frames)
     want = MPEG1IntraEncoder(quality=50, max_slice_bytes=2560, backend="numpy").encode(frames)
     assert got == want
     assert got == _cpu_encode(frames, quality=50, max_slice_bytes=2560)
-    assert cuda_vlc.launches8 > 0 and cuda_pack.launches8 > 0
-    assert cuda_vlc.launches == cuda_pack.launches == 0
+    assert _build.launches["vlc_fused8"] > 0 and _build.launches["pack_fused8"] > 0
+    assert _build.launches["vlc_fused4"] == _build.launches["pack_fused4"] == 0
 
 
 # ---- pack=: the raw-code pack kernels K1-K4 --------------------------------
 
-RAW_KERNELS = {"pallas1": (cuda_pack, "pack_raw", "launches_raw"),
-               "pallas3": (cuda_pack_split, "pack_windows", "launches_windows"),
-               "fused": (cuda_pack_split, "pack_split", "launches_split"),
-               "fused2w": (cuda_pack, "pack_pairs", "launches_pairs")}
+RAW_KERNELS = {"pallas1": (cuda_pack, "pack_raw"),
+               "pallas3": (cuda_pack_split, "pack_windows"),
+               "fused": (cuda_pack_split, "pack_split"),
+               "fused2w": (cuda_pack, "pack_pairs")}
 
 
 def _raw_slots(rng, n, k, dev, content="random"):
@@ -526,7 +527,7 @@ def _raw_kernels_equal_twin(codes, lens, max_words, b2=False):
         fused = tuple(cuda_vlc.to_i32_bits(t) for t in bitpack.fuse4(codes, lens))
         via_b2 = cuda_pack.pack_fused4(*fused, max_words, bit_offset=38)
         assert torch.equal(via_b2[0], want[0]) and torch.equal(via_b2[1], want[1])
-    for pack, (mod, fn, _) in RAW_KERNELS.items():
+    for pack, (mod, fn) in RAW_KERNELS.items():
         seg, nbits = getattr(mod, fn)(codes, lens, max_words, bit_offset=38)
         assert torch.equal(nbits, want[1]), pack
         assert torch.equal(seg, want[0]), pack
@@ -589,12 +590,10 @@ def test_pack_route_encoder(cuda, pack):
     """pack= on the card: the numpy reference's bytes (and the CPU
     encoder's) at q=50 (AAN) and q=85 (f32), with a forced regrow, through
     B5 and the chosen kernel, never B1, B2, B3 or B6a."""
-    mod, _, counter = RAW_KERNELS[pack]
+    _, kernel = RAW_KERNELS[pack]
     frames = np.random.default_rng(9).integers(0, 256, (2, 40, 520, 3), dtype=np.uint8)
     for quality in (50, 85):
-        setattr(mod, counter, 0)
-        cuda_lut.launches = cuda_vlc.launches = cuda_vlc_levels.launches = 0
-        cuda_pack.launches = cuda_vlc_raw.launches = 0
+        _build.launches.clear()
         enc = TorchMPEG1IntraEncoder(quality=quality, max_slice_bytes=2560, pack=pack,
                                      device=cuda)
         got = enc.encode(frames)
@@ -602,9 +601,9 @@ def test_pack_route_encoder(cuda, pack):
         assert got == want.encode(frames)
         assert got == _cpu_encode(frames, quality=quality, max_slice_bytes=2560)
         assert enc.max_slice_bytes > 2560
-        assert getattr(mod, counter) > 0 and cuda_lut.launches > 0
-        assert cuda_vlc.launches == cuda_vlc_levels.launches == 0
-        assert cuda_pack.launches == cuda_vlc_raw.launches == 0
+        assert _build.launches[kernel] > 0 and _build.launches["lut_lookup"] > 0
+        assert _build.launches["vlc_fused4"] == _build.launches["vlc_levels4"] == 0
+        assert _build.launches["pack_fused4"] == _build.launches["vlc_raw"] == 0
 
 
 # ---- every launcher leaves the caller's current device --------------------
@@ -636,7 +635,7 @@ def _launch_each_kernel(dev):
         "pack_fused4_checked": lambda: cuda_pack.pack_fused4(*slots, 640, checks=True),
         "pack_fused8": lambda: cuda_pack.pack_fused8(words8, flens8, 640),
         **{fn: (lambda mod=mod, fn=fn: getattr(mod, fn)(codes, lens, 640))
-           for mod, fn, _ in RAW_KERNELS.values()},
+           for mod, fn in RAW_KERNELS.values()},
     }
 
 
@@ -682,10 +681,10 @@ def test_encode_from_coeffs_card_equals_cpu(cuda, h, w, quality):
     """The IDCT and the padding on the card, then the kernels: the CPU
     path's bytes, and the reference's numpy intake's."""
     coeffs = _coeff_blocks(np.random.default_rng(h + w + quality), 2, h, w)
-    cuda_vlc.launches = cuda_vlc_levels.launches = cuda_pack.launches = 0
+    _build.launches.clear()
     got = TorchMPEG1IntraEncoder(quality=quality, device=cuda).encode_from_coeffs(*coeffs, h, w)
-    assert cuda_pack.launches > 0
-    assert (cuda_vlc.launches if quality < 70 else cuda_vlc_levels.launches) > 0
+    assert _build.launches["pack_fused4"] > 0
+    assert _build.launches["vlc_fused4" if quality < 70 else "vlc_levels4"] > 0
     assert got == TorchMPEG1IntraEncoder(quality=quality, device="cpu").encode_from_coeffs(
         *coeffs, h, w)
     assert got == MPEG1IntraEncoder(quality=quality, backend="numpy").encode_from_coeffs(
@@ -775,12 +774,12 @@ def two_cards(cuda):
     return [torch.device("cuda", 0), torch.device("cuda", 1)]
 
 
-# route -> (encoder keywords, the emission kernel's module and counter)
+# route -> (encoder keywords, the emission kernel's name in _build.launches)
 SHARDED_ROUTES = {
-    "q=50": (dict(quality=50), cuda_vlc, "launches"),
-    "q=50 fuse=8": (dict(quality=50, fuse=8), cuda_vlc, "launches8"),
-    "q=85": (dict(quality=85), cuda_vlc_levels, "launches"),
-    "q=50 debug_checks": (dict(quality=50, debug_checks=True), cuda_vlc_raw, "launches"),
+    "q=50": (dict(quality=50), "vlc_fused4"),
+    "q=50 fuse=8": (dict(quality=50, fuse=8), "vlc_fused8"),
+    "q=85": (dict(quality=85), "vlc_levels4"),
+    "q=50 debug_checks": (dict(quality=50, debug_checks=True), "vlc_raw"),
 }
 
 
@@ -789,14 +788,14 @@ SHARDED_ROUTES = {
 def test_sharded_on_card_equals_cpu(cuda, shape, route):
     """Shards on cuda:0, each its own launch: the CPU path's bytes from RGB
     and planes, one emission launch per shard per batch."""
-    kw, mod, counter = SHARDED_ROUTES[route]
+    kw, kernel = SHARDED_ROUTES[route]
     rng = np.random.default_rng(sum(shape) + kw["quality"])
     frames = rng.integers(0, 256, (3, 128, 176, 3), dtype=np.uint8)
     planes = (frames[..., 0], frames[:, ::2, ::2, 1], frames[:, ::2, ::2, 2])
     enc = ShardedTorchMPEG1Encoder(mesh=make_mesh(*shape, [cuda] * (shape[0] * shape[1])), **kw)
-    setattr(mod, counter, 0)
+    _build.launches.clear()
     got = enc.encode(frames)
-    assert getattr(mod, counter) == shape[0] * shape[1]
+    assert _build.launches[kernel] == shape[0] * shape[1]
     assert got == _cpu_encode(frames, **kw)
     assert enc.encode_from_planes(*planes) == TorchMPEG1IntraEncoder(
         device="cpu", **kw).encode_from_planes(*planes)

@@ -314,7 +314,7 @@ def test_multiply_high_division_is_exact():
 def test_plane_levels_on_cpu_runs_the_twin(monkeypatch):
     planes = _noise_planes(np.random.default_rng(5), 2, 32, 48)
     args = _args(planes, 85)
-    before = cuda_vlc_levels.launches_levels
+    before = _build.launches["f32_levels"]
 
     def no_kernel():
         raise AssertionError("the CPU route loaded the kernel")
@@ -322,7 +322,7 @@ def test_plane_levels_on_cpu_runs_the_twin(monkeypatch):
     monkeypatch.setattr(cuda_vlc_levels, "load_kernel", no_kernel)
     _equal(plane_levels(*args), _numpy_levels(*planes, _qw(85)))
     _equal(plane_levels(*args, dct_impl="f32"), _numpy_levels(*planes, _qw(85)))
-    assert cuda_vlc_levels.launches_levels == before
+    assert _build.launches["f32_levels"] == before
 
 
 def _bad_args(case):
@@ -378,10 +378,10 @@ def cuda():
 
 def _kernel_vs_twin(planes, quality, dev, numpy_too=False):
     args = _args(planes, quality, dev)
-    before = cuda_vlc_levels.launches_levels
+    before = _build.launches["f32_levels"]
     got = f32_levels(*args)
     torch.cuda.synchronize()
-    assert cuda_vlc_levels.launches_levels == before + 1
+    assert _build.launches["f32_levels"] == before + 1
     want = f32_levels_plain(*args)  # the plain ops on the card: numpy's bits
     _equal(got, tuple(t.cpu().numpy() for t in want))
     if numpy_too:
@@ -467,9 +467,9 @@ def test_encode_from_planes_q85_on_the_card_equals_the_cpu(cuda, frames, height,
     planes = _fixture_planes(frames, height, width, shift=5)
     want = TorchMPEG1IntraEncoder(quality=85, device="cpu").encode_from_planes(*planes)
     enc = TorchMPEG1IntraEncoder(quality=85, device=cuda)
-    before = cuda_vlc_levels.launches_levels
+    before = _build.launches["f32_levels"]
     assert enc.encode_from_planes(*planes) == want
-    assert cuda_vlc_levels.launches_levels == before + 1
+    assert _build.launches["f32_levels"] == before + 1
 
 
 @pytest.mark.requires_cuda
@@ -480,10 +480,10 @@ def test_launches_once_a_call_on_the_f32_route(cuda, quality, dct_impl, launches
     enc = TorchMPEG1IntraEncoder(quality=quality, dct_impl=dct_impl, device=cuda)
     want = TorchMPEG1IntraEncoder(quality=quality, dct_impl=dct_impl,
                                   device="cpu").encode_from_planes(*planes)
-    before = cuda_vlc_levels.launches_levels
+    before = _build.launches["f32_levels"]
     for i in range(2):
         assert enc.encode_from_planes(*planes) == want
-        assert cuda_vlc_levels.launches_levels == before + launches * (i + 1)
+        assert _build.launches["f32_levels"] == before + launches * (i + 1)
 
 
 def _sass_functions(lib: Path) -> dict:

@@ -19,7 +19,6 @@ import pytest
 import torch
 
 from ec504_imageencoder_tpu.ops.pallas_pack import _fuse2_32, _fuse2_64, pack_words_fused4_core
-from ec504_imageencoder_tpu_torch.models import encoder as compat_model
 from ec504_imageencoder_tpu_torch.models import mpeg1
 from ec504_imageencoder_tpu_torch.models.encoder import encode_compat
 from ec504_imageencoder_tpu_torch.models.mpeg1 import TorchMPEG1IntraEncoder
@@ -159,16 +158,16 @@ def test_injected_slot_violation_raises_f32(monkeypatch):
 @pytest.mark.parametrize("mode", ["aan", "f32", "compat"])
 def test_bad_fused_length_raises(monkeypatch, mode):
     """A fused length of 200 after healthy raw slots: only the checked pack
-    sees it (F2: compat's debug_checks packed without B2's guards)."""
-    module = compat_model if mode == "compat" else mpeg1
-    real = module.fuse4
+    sees it (F2: compat's debug_checks packed without B2's guards).  Every
+    mode fuses its raw slots in `mpeg1.pack_checked`."""
+    real = mpeg1.fuse4_i32
 
     def corrupt(codes, lens):
         v0, v1, v2, v3, flens = real(codes, lens)
         flens[0, 3] = 200
         return v0, v1, v2, v3, flens
 
-    monkeypatch.setattr(module, "fuse4", corrupt)
+    monkeypatch.setattr(mpeg1, "fuse4_i32", corrupt)
     with pytest.raises(RuntimeError, match="invariant violations"):
         if mode == "compat":
             encode_compat(np.zeros((1, 144, 96, 3), np.uint8), 12, device="cpu", debug_checks=True)
