@@ -193,7 +193,14 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    words and offsets equal to compact_slices on CPU tensors of the same
    slices; compact_slices' ms beside its bytes floor and the two
    device-to-host copies (the dense prefix, the encoder's bucketed
-   prefix) with their byte counts, recorded, not claimed.
+   prefix) with their byte counts, recorded, not claimed; at q=85 also
+   the prefix fetch itself, pageable into a fresh array against
+   fetch_prefix's pinned blocks reused from call to call, by CUDA
+   events, with its pinned fetches and the pinned blocks it created.
+
+Phases 4, 8, 9, 17, 20 and 22 also print their prefix fetches
+(mpeg1.prefix_fetches): one pinned fetch a card encode call, none
+pageable.
 
 The whole run's time is printed before the kernels line.  The line
 before the last is a JSON summary of the kernels (time, twin time, least
@@ -444,6 +451,23 @@ def _check_launches(path: str, counts: dict, must_run, must_not_run=()) -> None:
     for name in must_not_run:
         if counts[name] != 0:
             raise AssertionError(f"{path} launched {name}")
+
+
+def _check_fetches(path: str, pinned: int, pageable: int = 0) -> None:
+    """The prefix fetches since the last reset, by host buffer: `pinned`
+    from the card's encoders, `pageable` from CPU tensors and shards."""
+    from ec504_imageencoder_tpu_torch.models import mpeg1
+
+    counts = mpeg1.prefix_fetches
+    print(f"{path}: prefix fetches {dict(counts)}")
+    if (counts["pinned"], counts["pageable"]) != (pinned, pageable):
+        raise AssertionError(f"{path}: expected {pinned} pinned and {pageable} pageable "
+                             f"prefix fetches")
+
+
+def _host_allocs(torch) -> int:
+    """Pinned blocks the caching host allocator has created."""
+    return torch.cuda.host_memory_stats().get("num_host_alloc", 0)
 
 
 def _check_equal(name: str, got: bytes, want: bytes, what: str = "the CPU path") -> None:
@@ -789,7 +813,10 @@ def main() -> int:
     from ec504_imageencoder_tpu_torch.ops.vlc_device import zero_runs
     from ec504_imageencoder_tpu_torch.utils.tables import scale_quantization_matrix
 
-    reset_launches = _build.launches.clear
+    def reset_launches():
+        _build.launches.clear()
+        mpeg1.prefix_fetches.clear()
+
     read_launches = _build.launches.copy  # a Counter: 0 for a kernel never launched
 
     sanitizer_kernels = ("vlc_raw", "lut_lookup", "pack_fused4_checked")
@@ -922,6 +949,7 @@ def main() -> int:
                     f"{main_s:.2f} s)", launches, ("vlc_fused4", "pack_fused4"),
                     ("vlc_levels4", "f32_levels", "vlc_compat_slots", "vlc_compat_fused4",
                      "compat_color", *sanitizer_kernels, *fuse8_kernels, *raw_pack_kernels))
+    _check_fetches(f"q={QUALITY} path", 3)
     if regrow.max_slice_bytes <= 2560:
         raise AssertionError("the forced-regrow run did not regrow")
     print(f"regrow: 2560 B -> {regrow.max_slice_bytes} B per slice")
@@ -1087,6 +1115,7 @@ def main() -> int:
     _check_launches(f"q={HQ_QUALITY} path (encode + encode_from_planes, {hq_s:.2f} s)",
                     hq_launches, ("f32_levels", "vlc_levels4", "pack_fused4"),
                     ("vlc_fused4", *sanitizer_kernels, *fuse8_kernels, *raw_pack_kernels))
+    _check_fetches(f"q={HQ_QUALITY} path", 2)
     if hq_launches["f32_levels"] != hq_launches["vlc_levels4"]:
         raise AssertionError("the f32 levels kernel did not launch once a B3 launch")
 
@@ -1132,12 +1161,14 @@ def main() -> int:
                     compat_launches, ("compat_color", "vlc_compat_fused4", "pack_fused4"),
                     ("vlc_compat_slots", "vlc_fused4", "vlc_levels4", *sanitizer_kernels,
                      *fuse8_kernels))
+    _check_fetches("compat path", 2)
     reset_launches()
     c_debug, _ = encode_compat(gold_frames, COMPAT_QUALITY, device=dev, debug_checks=True)
     debug_launches = read_launches()
     _check_launches("compat path with debug_checks (30 frames)", debug_launches,
                     ("compat_color", "vlc_compat_slots", "pack_fused4_checked"),
                     ("vlc_compat_fused4", "pack_fused4"))
+    _check_fetches("compat path with debug_checks", 1)
     if (compat_launches["compat_color"], debug_launches["compat_color"]) != (2, 1):
         raise AssertionError("the compat colour did not launch once a call")
 
@@ -1462,6 +1493,7 @@ def main() -> int:
                     f"{f8_s:.2f} s)", f8_launches, fuse8_kernels,
                     ("vlc_fused4", "pack_fused4", "vlc_levels4", "vlc_compat_slots",
                      "vlc_compat_fused4", "compat_color", *sanitizer_kernels, *raw_pack_kernels))
+    _check_fetches(f"q={QUALITY} fuse=8 path", 3)
     if regrow8.max_slice_bytes <= 2560:
         raise AssertionError("the fuse=8 forced-regrow run did not regrow")
     print(f"fuse=8 regrow: 2560 B -> {regrow8.max_slice_bytes} B per slice")
@@ -1620,6 +1652,7 @@ def main() -> int:
         _check_launches(f"q={QUALITY} pack={pack!r} path (encode + encode_from_planes + regrow "
                         f"encode, {r_s:.2f} s)", route_counts[name], ("lut_lookup", name),
                         (*others, *(k for k in raw_pack_kernels if k != name)))
+        _check_fetches(f"q={QUALITY} pack={pack!r} path", 3)
         if r_grow.max_slice_bytes <= 2560:
             raise AssertionError(f"the pack={pack!r} forced-regrow run did not regrow")
         print(f"pack={pack!r} regrow: 2560 B -> {r_grow.max_slice_bytes} B per slice")
@@ -1634,6 +1667,7 @@ def main() -> int:
                  hq_route.encode_from_planes(jy, jcb, jcr), cpu_hq_planes)
     _check_launches(f"q={HQ_QUALITY} pack='fused' path ({hq_route.dct_impl})", read_launches(),
                     ("lut_lookup", "pack_split"), (*others, "pack_raw", "pack_windows", "pack_pairs"))
+    _check_fetches(f"q={HQ_QUALITY} pack='fused' path", 2)
     del hq_route
 
     # ---- 21. steady-state times, the generic route ------------------------
@@ -1702,6 +1736,7 @@ def main() -> int:
         enc_c = TorchMPEG1IntraEncoder(device=dev, **kw)
         got = enc_c.encode_from_coeffs(*coeffs, h, w)
         _check_launches(f"encode_from_coeffs {label}", read_launches(), must)
+        _check_fetches(f"encode_from_coeffs {label}", 1)
         if "max_slice_bytes" in kw:
             if enc_c.max_slice_bytes <= 2560:
                 raise AssertionError("the encode_from_coeffs forced-regrow run did not regrow")
@@ -2017,6 +2052,27 @@ def main() -> int:
         print(f"q={q} device-to-host copy: dense[:{fetch_w}] {4 * fetch_w} B in {dense_ms:.4f} ms, "
               f"the encoder's bucketed prefix seg[:, :, :{bucket}] {n_slices * bucket} B in "
               f"{prefix_ms:.4f} ms {tag}")
+        if q == HQ_QUALITY:
+            # the prefix fetch itself: pageable into a fresh array (the fetch before the
+            # pinned path) against the encoder's pinned, reused host blocks
+            need = int(bits.max())
+            n_prefix = mpeg1.prefix_bytes(used, msb)
+            pageable_ms = _event_ms(torch, lambda: seg[:, :, :n_prefix].cpu().numpy(), 20)
+            mpeg1.prefix_fetches.clear()
+            allocs0 = _host_allocs(torch)
+            pinned_ms = _event_ms(torch, lambda: mpeg1.fetch_prefix(seg, need, msb), 20)
+            allocs1 = _host_allocs(torch)
+            pinned = mpeg1.fetch_prefix(seg, need, msb)
+            same = (torch.from_numpy(pinned).is_pinned()
+                    and np.array_equal(pinned, seg[:, :, :n_prefix].cpu().numpy()))
+            print(f"q={q} prefix fetch, 16x1080p ({n_slices} x {n_prefix} B = "
+                  f"{n_slices * n_prefix} B): pageable into a fresh array {pageable_ms:.4f} ms, "
+                  f"pinned and reused {pinned_ms:.4f} ms; pinned and equal {same}, "
+                  f"{mpeg1.prefix_fetches['pinned']} pinned fetches, {allocs1 - allocs0} new pinned "
+                  f"blocks {tag}")
+            if not same:
+                raise AssertionError(f"q={q}: the pinned prefix differs from .cpu()")
+            del pinned
         del seg, bits_dev, dense, offs, cpu_dense, cpu_offs, rows
     del planes_dev
     print(f"chip_smoke: the whole run took {time.perf_counter() - t_start:.1f} s {tag}")

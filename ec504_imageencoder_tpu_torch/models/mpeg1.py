@@ -52,14 +52,19 @@ padding), `encode.enqueue` (the device pipeline's launches; inside it
 subsampling, and `encode.levels` around `plane_levels`), `encode.fetch_bits`
 (the bit counts, where the host waits for the device), `encode.fetch_prefix`
 (the used byte prefix), `encode.assemble` (`assemble`) and `encode.release`
-(the fetched prefix's host buffer freed).  A re-run after an overflow
+(the fetched prefix's host buffer given back).  A re-run after an overflow
 adds one `encode.enqueue` and one `encode.fetch_bits`.  The module
 counter `rgb420_passes` counts the RGB route's colour-and-subsampling
 passes since the last reset, on any device: one a call, and one more for
-each re-run.
+each re-run.  The `Counter` `prefix_fetches` counts the prefix fetches by
+their host buffer: "pinned" (page-locked memory from PyTorch's caching
+host allocator, reused from call to call: slice buffers on a CUDA device)
+or "pageable" (`.cpu()`: CPU tensors and the sharded encoder's results).
 """
 
 from __future__ import annotations
+
+from collections import Counter
 
 import numpy as np
 import torch
@@ -116,6 +121,8 @@ MAX_HEIGHT = 175 * 16  # 2800
 
 # colour-and-subsampling passes of `correct_pipeline` since the last reset
 rgb420_passes = 0
+# `fetch_prefix` calls by host buffer, "pinned" or "pageable", since the last clear()
+prefix_fetches: Counter[str] = Counter()
 
 
 def quality_to_quant(quality: int) -> tuple[np.ndarray, int]:
@@ -427,9 +434,25 @@ def prefix_bytes(used: int, cap: int) -> int:
 
 def fetch_prefix(seg_dev, need_bits: int, cap: int) -> np.ndarray:
     """The `encode.fetch_prefix` stage: the (B, S, cap) slice buffers'
-    first `prefix_bytes` bytes, enough for `need_bits`, to the host."""
+    first `prefix_bytes` bytes, enough for `need_bits`, to the host.
+
+    From a CUDA tensor the bytes go into page-locked memory from PyTorch's
+    caching host allocator, one copy on the current stream and a wait for
+    it: no page faults while CUDA stages the copy, and no unmapping
+    when the caller drops the array, whose block then serves the next
+    fetch of the same bucket.  Every fetch overwrites its block whole.
+    Other slice buffers (CPU tensors, the sharded encoder's `ShardedTensor`)
+    come back through `.cpu()`.  Counted in `prefix_fetches`."""
     with stage_scope("encode.fetch_prefix"):
-        return seg_dev[:, :, :prefix_bytes(-(-need_bits // 8), cap)].cpu().numpy()
+        prefix = seg_dev[:, :, :prefix_bytes(-(-need_bits // 8), cap)]
+        if isinstance(prefix, torch.Tensor) and prefix.is_cuda:
+            prefix_fetches["pinned"] += 1
+            host = torch.empty(prefix.shape, dtype=prefix.dtype, pin_memory=True)
+            host.copy_(prefix, non_blocking=True)
+            torch.cuda.current_stream(prefix.device).synchronize()
+            return host.numpy()
+        prefix_fetches["pageable"] += 1
+        return prefix.cpu().numpy()
 
 
 class TorchMPEG1IntraEncoder:
@@ -569,8 +592,9 @@ class TorchMPEG1IntraEncoder:
     def _run_and_assemble(self, run_once, mbw: int, disp_w: int, disp_h: int,
                           first_frame_index: int) -> bytes:
         """`_run_with_regrow`, then `assemble` of what it fetched.  The
-        fetched prefix's host buffer is freed in a span of its own:
-        unmapping tens of MB takes milliseconds."""
+        fetched prefix's host buffer is given back in a span of its own:
+        a pageable one is unmapped, which takes milliseconds at tens of MB;
+        a pinned one returns to the caching host allocator."""
         seg, bits = self._run_with_regrow(run_once, mbw)
         self._record(bits, mbw)
         with stage_scope("encode.assemble"):
