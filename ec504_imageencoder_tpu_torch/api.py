@@ -76,6 +76,55 @@ def encode_video(
     return enc.encode_to_file(frames, path)
 
 
+def encode_jpegs(
+    jpegs,
+    path: str,
+    quality: int = 50,
+    fps: float = 25.0,
+    gop_size: int = 15,
+    batch_size: int = 16,
+    intake: str = "auto",
+    device="cuda",
+) -> int:
+    """One-call ISO-compliant encode of JPEGs held in memory (a list of
+    bytes-like buffers, e.g. frames from a camera or a network) into a
+    video ES file, `batch_size` at a time through
+    `TorchMPEG1IntraEncoder.encode_from_jpegs`: the intake rule and the
+    decode of `encode_jpeg_folder`, with no file in between.  Returns
+    bytes written.  A widening beyond the JAX package, whose entry points
+    take a folder or decoded frames only."""
+    from ec504_imageencoder_tpu_torch.models.mpeg1 import (
+        FRAME_RATE_CODES,
+        TorchMPEG1IntraEncoder,
+    )
+    from ec504_imageencoder_tpu_torch.syntax import headers
+
+    enc = TorchMPEG1IntraEncoder(
+        quality=quality, frame_rate_code=FRAME_RATE_CODES.get(fps, 3),
+        gop_size=gop_size, device=device,
+    )
+    chunks = [enc.encode_from_jpegs(jpegs[s:s + batch_size], first_frame_index=s,
+                                    intake=intake)
+              for s in range(0, len(jpegs), batch_size)]
+    return _write(path, b"".join(chunks) + headers.sequence_end())
+
+
+def encode_frame_source(enc, src, batch_size: int, kind: str) -> bytes:
+    """The streaming encode of a `FolderFrameSource`: each batch decoded
+    to `kind` (`io/jpeg.py::intake_kind`'s answer) by the source's
+    one-batch lookahead, then coded by `models/mpeg1.py::encode_decoded`.
+    The encode of `encode_jpeg_folder` and the CLI's `--stream`; the ES
+    without its sequence end code."""
+    from ec504_imageencoder_tpu_torch.models.mpeg1 import encode_decoded
+
+    if kind == "rgb":
+        batches = ((start, (frames,)) for start, frames in src.batches(batch_size))
+    else:
+        batches = {"planes": src.plane_batches, "coeffs": src.coeff_batches}[kind](batch_size)
+    return b"".join(encode_decoded(enc, kind, arrays, src.geometry, start)
+                    for start, arrays in batches)
+
+
 def encode_jpeg_folder(
     images_folder: str,
     path: str,
@@ -99,6 +148,7 @@ def encode_jpeg_folder(
     store the JPEG's full-range YCbCr where the rgb intake stores studio
     range (ROADMAP C-r1), and an fps with no frame-rate code maps to
     code 3 (C-r2)."""
+    from ec504_imageencoder_tpu_torch.io import jpeg as jpeg_io
     from ec504_imageencoder_tpu_torch.io.stream import FolderFrameSource
     from ec504_imageencoder_tpu_torch.models.mpeg1 import (
         FRAME_RATE_CODES,
@@ -106,35 +156,18 @@ def encode_jpeg_folder(
     )
     from ec504_imageencoder_tpu_torch.syntax import headers
 
-    if intake not in ("auto", "rgb", "ycbcr", "coeffs"):
-        raise ValueError(f"unknown intake {intake!r}")
     dev = resolve_device(device)
     src = FolderFrameSource(images_folder)
+    kind = jpeg_io.intake_kind(src.geometry, intake)
     enc = TorchMPEG1IntraEncoder(
         quality=quality, frame_rate_code=FRAME_RATE_CODES.get(fps, 3),
         gop_size=gop_size, device=dev,
     )
-    staged = src.supports_planes()
-    if intake in ("ycbcr", "coeffs") and not staged:
-        raise ValueError(
-            f"intake {intake!r} needs 3-component 2x2-subsampled JPEGs "
-            "and the native staged decoder"
-        )
-    chunks = []
-    if intake == "coeffs":
-        g = src.geometry
-        for start, (yc, cbc, crc) in src.coeff_batches(batch_size):
-            chunks.append(enc.encode_from_coeffs(
-                yc, cbc, crc, g["height"], g["width"],
-                first_frame_index=start))
-    elif staged and intake in ("auto", "ycbcr"):
-        for start, (y, cb, cr) in src.plane_batches(batch_size):
-            chunks.append(
-                enc.encode_from_planes(y, cb, cr, first_frame_index=start))
-    else:
-        for start, batch in src.batches(batch_size):
-            chunks.append(enc.encode(batch, first_frame_index=start))
-    data = b"".join(chunks) + headers.sequence_end()
+    return _write(path, encode_frame_source(enc, src, batch_size, kind)
+                  + headers.sequence_end())
+
+
+def _write(path: str, data: bytes) -> int:
     parent = os.path.dirname(path)
     if parent:
         os.makedirs(parent, exist_ok=True)

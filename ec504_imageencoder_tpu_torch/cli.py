@@ -213,28 +213,19 @@ def _encode_correct(args, device, metrics, source, frames, n_frames, res_w, res_
         with open(args.output, "rb") as f:
             data = f.read()
     elif use_stream:
-        # bounded-memory path: decode batch N+1 while encoding batch N
-        staged_ok = (not args.bitstream_dir and source.supports_planes())
-        if args.intake in ("ycbcr", "coeffs") and not staged_ok:
+        # bounded-memory path: decode batch N+1 while encoding batch N, by
+        # the intake rule of encode_from_jpegs and api.encode_jpeg_folder
+        from ec504_imageencoder_tpu_torch.api import encode_frame_source
+        from ec504_imageencoder_tpu_torch.io.jpeg import intake_kind
+
+        try:  # .bit dumps need the RGB frames
+            kind = intake_kind(source.geometry, "rgb" if args.bitstream_dir else args.intake)
+        except ValueError as e:
             raise SystemExit(
                 f"--intake {args.intake} needs 3-component "
                 "2x2-subsampled JPEGs and the native staged decoder"
-            )
-        chunks = []
-        if args.intake == "coeffs":
-            g = source.geometry
-            for start, (yc, cbc, crc) in source.coeff_batches(args.batch):
-                chunks.append(enc.encode_from_coeffs(
-                    yc, cbc, crc, g["height"], g["width"],
-                    first_frame_index=start))
-        elif args.intake != "rgb" and staged_ok:
-            for start, (y, cb, cr) in source.plane_batches(args.batch):
-                chunks.append(
-                    enc.encode_from_planes(y, cb, cr, first_frame_index=start))
-        else:
-            for start, batch in source.batches(args.batch):
-                chunks.append(enc.encode(batch, first_frame_index=start))
-        data = b"".join(chunks) + headers.sequence_end()
+            ) from e
+        data = encode_frame_source(enc, source, args.batch, kind) + headers.sequence_end()
     else:
         chunks = []
         for start in range(0, n_frames, args.batch):

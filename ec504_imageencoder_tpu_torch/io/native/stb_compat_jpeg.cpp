@@ -111,6 +111,8 @@ class Decoder {
   int height() const { return img_h_; }
   int channels() const { return ncomp_ >= 3 ? 3 : 1; }
   int ncomp() const { return ncomp_; }
+  // entropy-coded segments decoded: one a scan, one more a restart marker
+  int segments() const { return segments_; }
   int comp_w(int k) const { return comp_[k].x; }
   int comp_h(int k) const { return comp_[k].y; }
   int comp_stride(int k) const { return comp_[k].w2; }
@@ -134,6 +136,7 @@ class Decoder {
   Huffman huff_dc_[4], huff_ac_[4];
   Component comp_[4];
   int restart_interval_ = 0;
+  int segments_ = 0;
 
   // entropy state
   uint32_t bitbuf_ = 0;
@@ -322,6 +325,7 @@ bool Decoder::handle_restart() {
   if (pending_marker_ >= 0xD0 && pending_marker_ <= 0xD7) {
     p_ += 2;  // consume FF Dn
     pending_marker_ = 0;
+    segments_++;
     eobrun_ = 0;
     for (auto &c : comp_) c.dc_pred = 0;
   }
@@ -476,6 +480,7 @@ bool Decoder::parse_sos() {
 
 bool Decoder::decode_scan(const int *ids, int ns, int ss, int se, int ah, int al) {
   reset_entropy();
+  segments_++;
   int todo = restart_interval_ ? restart_interval_ : 0x7fffffff;
 
   auto maybe_restart = [&]() -> bool {
@@ -922,95 +927,84 @@ unsigned char *stbj_decode_file(const char *path, int *w, int *h, int *comp) {
 
 void stbj_free(unsigned char *p) { std::free(p); }
 
-// Threaded batch decode: the host-side intake for batched device encodes.
-// Decodes `n` files into the caller's contiguous (n, expect_h, expect_w, 3)
-// u8 RGB buffer using a worker pool (ctypes releases the GIL, so Python
-// callers get real parallelism).  Per-file status: 0 ok, 1 decode failure
-// (reference skip-on-bad semantics, encoder.h:163-167), 2 dimension
-// mismatch (reference aborts, image_processing.c:48-66).  Returns the
-// number of status-0 files.
-int stbj_decode_batch(const char **paths, int n, int expect_w, int expect_h,
-                      unsigned char *out, int *status, int n_threads) {
-  if (n <= 0) return 0;
-  if (n_threads <= 0) {
-    n_threads = int(std::thread::hardware_concurrency());
-    if (n_threads <= 0) n_threads = 4;
-  }
-  if (n_threads > n) n_threads = n;
-  const size_t frame_px = size_t(expect_w) * size_t(expect_h);
-  std::atomic<int> next(0), ok(0);
-
-  auto worker = [&]() {
-    for (;;) {
-      int i = next.fetch_add(1);
-      if (i >= n) return;
-      int w = 0, h = 0, c = 0;
-      unsigned char *pix = stbj_decode_file(paths[i], &w, &h, &c);
-      if (!pix) {
-        status[i] = 1;
-        continue;
-      }
-      if (w != expect_w || h != expect_h) {
-        status[i] = 2;
-        std::free(pix);
-        continue;
-      }
-      unsigned char *dst = out + size_t(i) * frame_px * 3;
-      if (c == 3) {
-        std::memcpy(dst, pix, frame_px * 3);
-      } else if (c > 3) {  // drop alpha
-        for (size_t p = 0; p < frame_px; ++p)
-          std::memcpy(dst + p * 3, pix + p * size_t(c), 3);
-      } else {  // grayscale -> RGB replicate
-        for (size_t p = 0; p < frame_px; ++p) {
-          unsigned char v = pix[p * size_t(c)];
-          dst[p * 3] = dst[p * 3 + 1] = dst[p * 3 + 2] = v;
-        }
-      }
-      std::free(pix);
-      status[i] = 0;
-      ok.fetch_add(1);
-    }
-  };
-  std::vector<std::thread> pool;
-  pool.reserve(size_t(n_threads));
-  for (int t = 0; t < n_threads; ++t) pool.emplace_back(worker);
-  for (auto &th : pool) th.join();
-  return ok.load();
-}
-
-}  // extern "C" (reopened below for the staged-decode entry points)
+}  // extern "C" (reopened below for the batch entry points)
 
 // ---------------------------------------------------------------------------
-// Staged decode for the hybrid host/device pipeline (reference counterpart:
-// stb's host-only pipeline, stb_image.h:2430-2523 + encoder.h:126-171 —
-// there everything runs on the host; here the host stops after the
-// inherently serial entropy decode (+ optional IDCT) and the TPU runs
-// the rest, or the encoder ingests the YCbCr planes directly).
+// Batch decode from memory: the host-side intake of batched device
+// encodes, and the one decode path of every batch (reference counterpart:
+// stb's host-only pipeline, stb_image.h:2430-2523 + encoder.h:126-171).
+// Callers that hold paths (io/jpeg.py) read each file into memory first,
+// so frames from files and frames from memory take the same code.  The
+// staged stages stop early for the hybrid host/device pipeline: after the
+// inherently serial entropy decode, or after the IDCT.
 
-static std::vector<unsigned char> read_file(const char *path) {
-  std::vector<unsigned char> buf;
-  FILE *f = std::fopen(path, "rb");
-  if (!f) return buf;
-  std::fseek(f, 0, SEEK_END);
-  long len = std::ftell(f);
-  std::fseek(f, 0, SEEK_SET);
-  buf.resize(size_t(len > 0 ? len : 0));
-  if (len > 0 && std::fread(buf.data(), 1, size_t(len), f) != size_t(len))
-    buf.clear();
-  std::fclose(f);
-  return buf;
+namespace {
+
+// Stage 0 and 1 need the expected 3-component layout: 3 unsupported
+// layout (not 3-component, Y subsampled, or chroma dims other than the
+// expected), 2 dimension mismatch.
+int check_layout(const Decoder &d, int ew, int eh, int ecw, int ech) {
+  if (d.ncomp() != 3) return 3;
+  if (d.width() != ew || d.height() != eh) return 2;
+  if (d.comp_w(0) != ew || d.comp_h(0) != eh) return 3;  // Y subsampled?!
+  for (int k = 1; k < 3; k++)
+    if (d.comp_w(k) != ecw || d.comp_h(k) != ech) return 3;
+  return 0;
 }
 
-// Header-only probe: image dims, component count, and the (cropped)
-// chroma plane dims of component 1 (equal to comp 2 for all real JPEGs).
-// Returns 1 on success, 0 on failure.
-extern "C" int stbj_probe_file(const char *path, int *w, int *h, int *ncomp,
-                    int *cw, int *ch, int *hsamp, int *vsamp) {
-  auto buf = read_file(path);
-  if (buf.empty()) return 0;
+// Frame i of a batch into its slot of the outputs; -> its status.
+int decode_one(const unsigned char *buf, long len, int stage, int ew, int eh,
+               int ecw, int ech, void *out0, void *out1, void *out2,
+               size_t i, int *segments) {
   Decoder d;
-  if (!d.probe(buf.data(), buf.size())) return 0;
+  if (!buf || len <= 0 ||
+      !d.decode(buf, size_t(len), Decoder::Stage(stage)))
+    return 1;
+  segments[i] = d.segments();
+  if (stage == Decoder::FULL) {
+    if (d.width() != ew || d.height() != eh) return 2;
+    const size_t frame_px = size_t(ew) * size_t(eh);
+    unsigned char *dst = static_cast<unsigned char *>(out0) + i * frame_px * 3;
+    const uint8_t *pix = d.output.data();
+    if (d.channels() == 3) {
+      std::memcpy(dst, pix, frame_px * 3);
+    } else {  // grayscale -> RGB replicate
+      for (size_t p = 0; p < frame_px; ++p)
+        dst[p * 3] = dst[p * 3 + 1] = dst[p * 3 + 2] = pix[p];
+    }
+    return 0;
+  }
+  int rc = check_layout(d, ew, eh, ecw, ech);
+  if (rc) return rc;
+  void *outs[3] = {out0, out1, out2};
+  for (int k = 0; k < 3; k++) {
+    int kw = k ? ecw : ew, kh = k ? ech : eh;
+    if (stage == Decoder::PLANES) {
+      unsigned char *dst = static_cast<unsigned char *>(outs[k]) + i * size_t(kw) * kh;
+      const uint8_t *src = d.comp_pixels(k);
+      for (int r = 0; r < kh; r++)
+        std::memcpy(dst + size_t(r) * kw, src + size_t(r) * d.comp_stride(k), kw);
+    } else {
+      int bw = d.comp_bw(k), bh = d.comp_bh(k), bstride = d.comp_bstride(k);
+      int16_t *dst = static_cast<int16_t *>(outs[k]) + i * size_t(bw) * bh * 64;
+      const int16_t *src = d.comp_coeffs(k);
+      for (int r = 0; r < bh; r++)
+        std::memcpy(dst + size_t(r) * bw * 64, src + size_t(r) * bstride * 64,
+                    size_t(bw) * 64 * sizeof(int16_t));
+    }
+  }
+  return 0;
+}
+
+}  // namespace
+
+// Header-only probe of a JPEG in memory: image dims, component count, and
+// the (cropped) chroma plane dims of component 1 (equal to comp 2 for all
+// real JPEGs).  Returns 1 on success, 0 on failure.
+extern "C" int stbj_probe_mem(const unsigned char *data, long len, int *w, int *h,
+                              int *ncomp, int *cw, int *ch, int *hsamp, int *vsamp) {
+  Decoder d;
+  if (!data || len <= 0 || !d.probe(data, size_t(len))) return 0;
   *w = d.width();
   *h = d.height();
   *ncomp = d.ncomp();
@@ -1026,105 +1020,44 @@ extern "C" int stbj_probe_file(const char *path, int *w, int *h, int *ncomp,
   return 1;
 }
 
-namespace {
-
-// shared batch driver: per-file status 0 ok, 1 decode failure, 2
-// dimension mismatch, 3 unsupported layout (not 3-component, or chroma
-// dims differ from the probe)
-template <typename Fn>
-int run_batch(const char **paths, int n, int n_threads, int *status,
-              Fn &&per_file) {
+// Decodes the n JPEGs bufs[i] (lens[i] bytes) into the caller's contiguous
+// outputs on a pool of worker threads (ctypes releases the GIL, so Python
+// callers get real parallelism).  stage 0: dequantized int16 coefficient
+// blocks, Y ceil(eh/8)*ceil(ew/8) blocks of 64 natural-order values in
+// out0, Cb and Cr likewise at (ech, ecw) in out1 and out2; 1: the
+// per-component YCbCr pixel planes after the IDCT (no resample or colour),
+// Y (eh, ew) and Cb, Cr (ech, ecw) u8, exactly the 4:2:0 planes the MPEG
+// encoder ingests; 2: (eh, ew, 3) u8 RGB in out0 (stb's upsampling and
+// colour; grayscale replicated).  Per-frame status: 0 ok, 1 decode failure
+// (the reference skips such a file, encoder.h:163-167), 2 dimension
+// mismatch (the reference aborts, image_processing.c:48-66), 3 unsupported
+// layout (stages 0 and 1).  segments[i]: the entropy-coded segments frame i
+// held (one a scan, one more a restart marker).  Returns the worker
+// threads used: n_threads, or one per hardware thread where it is <= 0,
+// at most n.
+extern "C" int stbj_decode_batch_mem(const unsigned char **bufs, const long *lens,
+                                     int n, int stage, int ew, int eh, int ecw,
+                                     int ech, void *out0, void *out1, void *out2,
+                                     int *status, int *segments, int n_threads) {
   if (n <= 0) return 0;
   if (n_threads <= 0) {
     n_threads = int(std::thread::hardware_concurrency());
     if (n_threads <= 0) n_threads = 4;
   }
   if (n_threads > n) n_threads = n;
-  std::atomic<int> next(0), ok(0);
+  std::atomic<int> next(0);
   auto worker = [&]() {
     for (;;) {
       int i = next.fetch_add(1);
       if (i >= n) return;
-      status[i] = per_file(i);
-      if (status[i] == 0) ok.fetch_add(1);
+      segments[i] = 0;
+      status[i] = decode_one(bufs[i], lens[i], stage, ew, eh, ecw, ech, out0,
+                             out1, out2, size_t(i), segments);
     }
   };
   std::vector<std::thread> pool;
   pool.reserve(size_t(n_threads));
   for (int t = 0; t < n_threads; ++t) pool.emplace_back(worker);
   for (auto &th : pool) th.join();
-  return ok.load();
-}
-
-int check_layout(const Decoder &d, int ew, int eh, int ecw, int ech) {
-  if (d.ncomp() != 3) return 3;
-  if (d.width() != ew || d.height() != eh) return 2;
-  if (d.comp_w(0) != ew || d.comp_h(0) != eh) return 3;  // Y subsampled?!
-  for (int k = 1; k < 3; k++)
-    if (d.comp_w(k) != ecw || d.comp_h(k) != ech) return 3;
-  return 0;
-}
-
-}  // namespace
-
-// Decode to per-component YCbCr pixel planes (post-IDCT, pre-resample):
-// Y cropped to (eh, ew), Cb/Cr cropped to (ech, ecw) each — exactly the
-// 4:2:0 planes the MPEG encoder ingests, at half the bytes of RGB.
-extern "C" int stbj_decode_planes_batch(
-                             const char **paths, int n, int ew, int eh,
-                             int ecw, int ech, unsigned char *y_out,
-                             unsigned char *cb_out, unsigned char *cr_out,
-                             int *status, int n_threads) {
-  const size_t ysz = size_t(ew) * eh, csz = size_t(ecw) * ech;
-  return run_batch(paths, n, n_threads, status, [&](int i) {
-    auto buf = read_file(paths[i]);
-    if (buf.empty()) return 1;
-    Decoder d;
-    if (!d.decode(buf.data(), buf.size(), Decoder::PLANES)) return 1;
-    int rc = check_layout(d, ew, eh, ecw, ech);
-    if (rc) return rc;
-    unsigned char *outs[3] = {y_out + size_t(i) * ysz,
-                              cb_out + size_t(i) * csz,
-                              cr_out + size_t(i) * csz};
-    for (int k = 0; k < 3; k++) {
-      const uint8_t *src = d.comp_pixels(k);
-      int cw = d.comp_w(k), chh = d.comp_h(k), stride = d.comp_stride(k);
-      for (int r = 0; r < chh; r++)
-        std::memcpy(outs[k] + size_t(r) * cw, src + size_t(r) * stride, cw);
-    }
-    return 0;
-  });
-}
-
-// Decode to dequantized int16 coefficient blocks (entropy decode only on
-// the host): per frame, Y is ceil(eh/8)*ceil(ew/8) blocks of 64
-// natural-order int16, chroma likewise at (ech, ecw).  The TPU runs
-// dequant-free islow IDCT + resample + color (ops/jpeg_tpu.py).
-extern "C" int stbj_decode_coeffs_batch(
-                             const char **paths, int n, int ew, int eh,
-                             int ecw, int ech, int16_t *y_out,
-                             int16_t *cb_out, int16_t *cr_out, int *status,
-                             int n_threads) {
-  const int ybw = (ew + 7) / 8, ybh = (eh + 7) / 8;
-  const int cbw = (ecw + 7) / 8, cbh = (ech + 7) / 8;
-  const size_t ysz = size_t(ybw) * ybh * 64, csz = size_t(cbw) * cbh * 64;
-  return run_batch(paths, n, n_threads, status, [&](int i) {
-    auto buf = read_file(paths[i]);
-    if (buf.empty()) return 1;
-    Decoder d;
-    if (!d.decode(buf.data(), buf.size(), Decoder::COEFFS)) return 1;
-    int rc = check_layout(d, ew, eh, ecw, ech);
-    if (rc) return rc;
-    int16_t *outs[3] = {y_out + size_t(i) * ysz, cb_out + size_t(i) * csz,
-                        cr_out + size_t(i) * csz};
-    for (int k = 0; k < 3; k++) {
-      const int16_t *src = d.comp_coeffs(k);
-      int bw = d.comp_bw(k), bh = d.comp_bh(k), bstride = d.comp_bstride(k);
-      for (int r = 0; r < bh; r++)
-        std::memcpy(outs[k] + size_t(r) * bw * 64,
-                    src + size_t(r) * bstride * 64,
-                    size_t(bw) * 64 * sizeof(int16_t));
-    }
-    return 0;
-  });
+  return n_threads;
 }

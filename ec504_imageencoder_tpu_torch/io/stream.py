@@ -13,7 +13,10 @@ directly into runtime.checkpoint.encode_resumable / parallel.distributed
 (their GOP loops pull exactly the ranges they own), and a sequential
 iterator — `src.batches(n)` — with one-batch lookahead decode running in
 a worker thread while the device encodes the current batch (the native
-decoder releases the GIL, so the overlap is real).
+decoder releases the GIL, so the overlap is real).  While a profiler
+records, the caller's wait for each decoded batch runs in the span
+`encode.jpeg_decode` (the span of the decode in `encode_from_jpegs`): the
+part of the decode that the previous batch's encode did not hide.
 
 Failure semantics differ deliberately from load-all: an undecodable file
 raises instead of being skipped (reference encoder.h:163-167 skips).
@@ -25,11 +28,11 @@ production behavior.  Dimension mismatches raise in both modes.
 from __future__ import annotations
 
 import concurrent.futures
-import ctypes
 
 import numpy as np
 
 from ec504_imageencoder_tpu_torch.io import jpeg as jpeg_io
+from ec504_imageencoder_tpu_torch.utils.profiling import stage_scope
 
 
 class FolderFrameSource:
@@ -64,19 +67,8 @@ class FolderFrameSource:
 
     def _decode_range(self, start: int, end: int) -> np.ndarray:
         paths = self.paths[start:end]
-        out = np.empty((len(paths), self.height, self.width, 3), np.uint8)
-        if not paths:
-            return out
-        lib = jpeg_io._load_native()
-        n = len(paths)
-        st = np.zeros(n, np.int32)
-        c_paths = (ctypes.c_char_p * n)(*[p.encode() for p in paths])
-        lib.stbj_decode_batch(
-            c_paths, n, self.width, self.height,
-            out.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)),
-            st.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
-            self.n_threads,
-        )
+        geom = {"width": self.width, "height": self.height}
+        (out,), st = jpeg_io.decode_with_status(paths, geom, "rgb", self.n_threads)
         bad = np.nonzero(st != 0)[0]
         if bad.size:
             i = int(bad[0])
@@ -100,7 +92,8 @@ class FolderFrameSource:
         with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
             nxt = pool.submit(fetch, 0, min(batch_size, n))
             for start in range(0, n, batch_size):
-                cur = nxt.result()
+                with stage_scope("encode.jpeg_decode"):
+                    cur = nxt.result()
                 e2 = min(start + 2 * batch_size, n)
                 if start + batch_size < n:
                     nxt = pool.submit(fetch, start + batch_size, e2)
@@ -124,10 +117,8 @@ class FolderFrameSource:
         2x2-subsampled JPEGs through the native staged decoder (other
         layouts fall back to the RGB intake)."""
         g = self.geometry
-        return bool(
-            g and g["ncomp"] == 3 and g["hsamp"] == 2 and g["vsamp"] == 2
-            and (g["width"], g["height"]) == (self.width, self.height)
-        )
+        return (jpeg_io.intake_kind(g) == "planes"
+                and (g["width"], g["height"]) == (self.width, self.height))
 
     def planes(self, start: int, end: int):
         """Decode [start, end) to (Y, Cb, Cr) u8 plane batches — half the

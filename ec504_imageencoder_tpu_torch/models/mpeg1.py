@@ -35,7 +35,11 @@ reference's generic route does.
 The coefficients intake (`encode_from_coeffs`) runs the JPEG decode's back
 half on the device first (`ops/jpeg_device.py`, plain torch: the islow
 IDCT, then the macroblock edge padding) and feeds the planes to the same
-routes.
+routes.  The JPEG intake (`encode_from_jpegs`, a widening beyond the JAX
+package) takes the JPEG files or bytes themselves: the host's native
+decoder (`io/jpeg.py::decode_batch`) decodes them to what the intake rule
+(`io/jpeg.py::intake_kind`) picks, then `encode_from_planes`,
+`encode_from_coeffs` or `encode` codes that.
 
 On the CPU the kernels' plain twins run instead.
 
@@ -45,6 +49,7 @@ the regrow loop and `assemble`.
 
 While a profiler records, each call of the encoder runs as a sequence of
 spans on the calling thread (`utils.profiling.stage_scope`), one per stage:
+`encode.jpeg_decode` (`encode_from_jpegs`' host decode of the JPEGs),
 `encode.pad` (validation and host padding), `encode.h2d` (the copies to
 the device), `encode.intake` (the coefficients intake's IDCT and device
 padding), `encode.enqueue` (the device pipeline's launches; inside it
@@ -71,6 +76,7 @@ import torch
 from torch import nn
 
 from ec504_imageencoder_tpu_torch.device import resolve_device
+from ec504_imageencoder_tpu_torch.io import jpeg as jpeg_io
 from ec504_imageencoder_tpu_torch.ops import jpeg_device
 from ec504_imageencoder_tpu_torch.ops.bitpack import or_slice_headers
 from ec504_imageencoder_tpu_torch.ops.color import rgb_to_ycbcr, subsample_420
@@ -455,6 +461,20 @@ def fetch_prefix(seg_dev, need_bits: int, cap: int) -> np.ndarray:
         return prefix.cpu().numpy()
 
 
+def encode_decoded(enc, kind: str, arrays: tuple, geom: dict,
+                   first_frame_index: int = 0) -> bytes:
+    """A batch that `io/jpeg.py::decode_batch` decoded to `kind`, coded by
+    the entry of `enc` (a `TorchMPEG1IntraEncoder` or the sharded encoder)
+    that takes it: "planes" `encode_from_planes`, "coeffs"
+    `encode_from_coeffs` (geom gives the frame size), "rgb" `encode`."""
+    if kind == "planes":
+        return enc.encode_from_planes(*arrays, first_frame_index=first_frame_index)
+    if kind == "coeffs":
+        return enc.encode_from_coeffs(*arrays, geom["height"], geom["width"],
+                                      first_frame_index=first_frame_index)
+    return enc.encode(*arrays, first_frame_index=first_frame_index)
+
+
 class TorchMPEG1IntraEncoder:
     """ISO-compliant all-I-frame MPEG-1 video encoder whose device pipeline
     runs on torch tensors on `device`: the CUDA kernels on a GPU (the
@@ -679,6 +699,30 @@ class TorchMPEG1IntraEncoder:
         inputs = self._to_device(planes)
         return self._run_and_assemble(lambda msb: self._enqueue_planes(inputs, msb),
                                       planes[0].shape[2] // 16, disp_w, disp_h, first_frame_index)
+
+    def encode_from_jpegs(self, jpegs, first_frame_index: int = 0,
+                          intake: str = "auto") -> bytes:
+        """Encode a batch of JPEGs, files (paths) or in memory (bytes-like
+        buffers), into an MPEG-1 video ES.  The first is probed; `intake`
+        ("auto", "ycbcr", "coeffs" or "rgb") picks what the batch is
+        decoded to by the rule of `api.encode_jpeg_folder` and the CLI's
+        `--stream` (`io/jpeg.py::intake_kind`: the 4:2:0 planes of
+        3-component 2x2-subsampled JPEGs under "auto"); the host's native
+        decoder decodes every frame on its threads, in the span
+        `encode.jpeg_decode` (a frame of another geometry, or one that
+        fails, raises ValueError naming it); then this returns what
+        `encode_from_planes`, `encode_from_coeffs` or `encode` returns for
+        the decoded batch.  A widening beyond the JAX package, which takes
+        decoded frames only."""
+        if not len(jpegs):
+            raise ValueError("encode_from_jpegs needs at least one JPEG")
+        geom = jpeg_io.probe_jpeg(jpegs[0])
+        if geom is None:
+            raise ValueError(f"decode failure: {jpeg_io.source_name(jpegs, 0)}")
+        kind = jpeg_io.intake_kind(geom, intake)
+        with stage_scope("encode.jpeg_decode"):
+            arrays = jpeg_io.decode_batch(jpegs, geom, kind)
+        return encode_decoded(self, kind, arrays, geom, first_frame_index)
 
     def encode_to_file(self, frames_rgb: np.ndarray, path: str) -> int:
         data = self.encode(frames_rgb) + headers.sequence_end()
