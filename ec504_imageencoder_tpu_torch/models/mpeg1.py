@@ -50,12 +50,15 @@ the regrow loop and `assemble`.
 While a profiler records, each call of the encoder runs as a sequence of
 spans on the calling thread (`utils.profiling.stage_scope`), one per stage:
 `encode.jpeg_decode` (`encode_from_jpegs`' host decode of the JPEGs),
-`encode.pad` (validation and host padding), `encode.h2d` (the copies to
-the device), `encode.intake` (the coefficients intake's IDCT and device
-padding), `encode.enqueue` (the device pipeline's launches; inside it
-`encode.rgb420` around the RGB route's colour conversion and 4:2:0
-subsampling, and `encode.levels` around `plane_levels`), `encode.fetch_bits`
-(the bit counts, where the host waits for the device), `encode.fetch_prefix`
+`encode.pad` (validation; the sharded encoder's host padding and slabs),
+`encode.h2d` (the caller's unpadded arrays copied to the device),
+`encode.edge_pad` (the planes or RGB frames edge-padded to whole
+macroblocks on the device), `encode.intake` (the coefficients intake's
+IDCT and device padding), `encode.enqueue` (the device pipeline's
+launches; inside it `encode.rgb420` around the RGB route's colour
+conversion and 4:2:0 subsampling, and `encode.levels` around
+`plane_levels`), `encode.fetch_bits` (the bit counts, where the host
+waits for the device), `encode.fetch_prefix`
 (the used byte prefix), `encode.assemble` (`assemble`) and `encode.release`
 (the fetched prefix's host buffer given back).  A re-run after an overflow
 adds one `encode.enqueue` and one `encode.fetch_bits`.  The module
@@ -65,6 +68,10 @@ each re-run.  The `Counter` `prefix_fetches` counts the prefix fetches by
 their host buffer: "pinned" (page-locked memory from PyTorch's caching
 host allocator, reused from call to call: slice buffers on a CUDA device)
 or "pageable" (`.cpu()`: CPU tensors and the sharded encoder's results).
+The `Counter` `pad_sites` counts the calls whose frames or planes needed
+macroblock padding by where it was done: "device" (`edge_pad`, after the
+copy: every single-device entry) or "host" (`np.pad`, before it: the
+sharded encoder, which cuts the padded rows into slabs on the host).
 """
 
 from __future__ import annotations
@@ -129,6 +136,8 @@ MAX_HEIGHT = 175 * 16  # 2800
 rgb420_passes = 0
 # `fetch_prefix` calls by host buffer, "pinned" or "pageable", since the last clear()
 prefix_fetches: Counter[str] = Counter()
+# calls whose inputs were padded to whole macroblocks, by "device" or "host", since the last clear()
+pad_sites: Counter[str] = Counter()
 
 
 def quality_to_quant(quality: int) -> tuple[np.ndarray, int]:
@@ -374,26 +383,50 @@ def correct_pipeline_planes(core: EncodeCore, y, cb, cr, max_slice_bytes: int,
     return core(y, cb, cr, max_slice_bytes, debug_checks, first_row)
 
 
-def edge_pad(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """(..., h0, w0) -> (..., h, w) for h >= h0 and w >= w0: the last row
-    and column repeated, as `np.pad(mode="edge")` on the last two axes, by
-    clamped index gathers (any dtype, on the tensor's device)."""
-    h0, w0 = x.shape[-2:]
+def edge_pad(x: torch.Tensor, h: int, w: int, dims: tuple[int, int] = (-2, -1)) -> torch.Tensor:
+    """x with the adjacent axes `dims` (h0, w0) grown to (h, w), h >= h0
+    and w >= w0: the last row and column repeated, as `np.pad(mode="edge")`,
+    on the tensor's device (any dtype).  x is copied once into a new tensor
+    and only the margins are filled (from x's last row, then from the new
+    tensor's last column: the corner too); where neither axis grows, x
+    itself is returned."""
+    d0, d1 = (d % x.ndim for d in dims)
+    h0, w0 = x.shape[d0], x.shape[d1]
     if (h0, w0) == (h, w):
         return x
-    rows = torch.arange(h, device=x.device).clamp_(max=h0 - 1)
-    cols = torch.arange(w, device=x.device).clamp_(max=w0 - 1)
-    return x.index_select(-2, rows).index_select(-1, cols)
+    shape = list(x.shape)
+    shape[d0], shape[d1] = h, w
+    out = x.new_empty(shape)
+    out.narrow(d0, 0, h0).narrow(d1, 0, w0).copy_(x)
+    rows = out.narrow(d0, h0, h - h0).narrow(d1, 0, w0)
+    rows.copy_(x.narrow(d0, h0 - 1, 1).expand(rows.shape))
+    cols = out.narrow(d1, w0, w - w0)
+    cols.copy_(out.narrow(d1, w0 - 1, 1).expand(cols.shape))
+    return out
+
+
+def edge_pad_planes(y, cb, cr):
+    """4:2:0 planes (..., H, W) and (..., ceil(H/2), ceil(W/2)) edge-padded
+    on their device by the rule of `pad_planes_to_macroblocks`: Y to
+    multiples of 16, chroma to half of that."""
+    h, w = y.shape[-2:]
+    th, tw = h + -h % 16, w + -w % 16
+    return edge_pad(y, th, tw), edge_pad(cb, th // 2, tw // 2), edge_pad(cr, th // 2, tw // 2)
+
+
+def edge_pad_frames(rgb):
+    """(B, H, W, 3) frames edge-padded on their device to multiples of 16,
+    as `pad_to_macroblocks` pads them on the host."""
+    h, w = rgb.shape[1:3]
+    return edge_pad(rgb, h + -h % 16, w + -w % 16, dims=(1, 2))
 
 
 def coeffs_to_planes(yc, cbc, crc, height: int, width: int):
     """The front of the reference's `_jitted_coeffs_pipeline`: (B, blocks,
     64) int32 dequantized JPEG coefficients -> the islow IDCT's 4:2:0
-    planes, cropped to height x width, then edge-padded on their device:
-    Y to multiples of 16, chroma to half of that."""
-    y, cb, cr = jpeg_device.decode_planes_from_coeffs(yc, cbc, crc, height, width)
-    th, tw = height + -height % 16, width + -width % 16
-    return edge_pad(y, th, tw), edge_pad(cb, th // 2, tw // 2), edge_pad(cr, th // 2, tw // 2)
+    planes, cropped to height x width, then edge-padded on their device
+    (`edge_pad_planes`)."""
+    return edge_pad_planes(*jpeg_device.decode_planes_from_coeffs(yc, cbc, crc, height, width))
 
 
 def correct_pipeline(core: EncodeCore, rgb, max_slice_bytes: int,
@@ -570,12 +603,21 @@ class TorchMPEG1IntraEncoder:
             self.max_slice_bytes = initial_slice_bytes(self.quality, mbw)
         return self.max_slice_bytes
 
-    def _to_device(self, arrays):
-        """The padded host arrays -> the device inputs of `_enqueue_rgb`
-        and `_enqueue_planes`: each array copied to the device, once a call
-        (a regrow re-runs on the same copies)."""
+    def _to_device(self, arrays, kind: str):
+        """The caller's unpadded host arrays, `kind` "rgb" ((B, H, W, 3)
+        frames) or "planes" (Y, Cb, Cr) -> the device inputs of
+        `_enqueue_rgb` and `_enqueue_planes`: each array copied to the
+        device as it is (`encode.h2d`), then edge-padded there to whole
+        macroblocks (`encode.edge_pad`: `edge_pad_frames` or
+        `edge_pad_planes`; counted in `pad_sites["device"]` where it pads),
+        once a call: a regrow re-runs on the same padded tensors."""
         with stage_scope("encode.h2d"):
-            return tuple(torch.from_numpy(a).to(self.device) for a in arrays)
+            inputs = tuple(torch.from_numpy(a).to(self.device) for a in arrays)
+        with stage_scope("encode.edge_pad"):
+            padded = (edge_pad_frames(*inputs),) if kind == "rgb" else edge_pad_planes(*inputs)
+        if padded[0] is not inputs[0]:
+            pad_sites["device"] += 1
+        return padded
 
     def _enqueue_rgb(self, inputs, msb: int):
         (rgb,) = inputs
@@ -632,8 +674,11 @@ class TorchMPEG1IntraEncoder:
     def encode(self, frames_rgb: np.ndarray, first_frame_index: int = 0) -> bytes:
         """Encode (B, H, W, 3) uint8 frames into an MPEG-1 video ES.
 
-        first_frame_index keeps GOP boundaries and timecodes consistent
-        across chunked encodes; callers append `headers.sequence_end()`."""
+        The frames are copied to the device unpadded and edge-padded to
+        whole macroblocks there, before the colour conversion (see
+        `_to_device`); the host only validates them.  first_frame_index
+        keeps GOP boundaries and timecodes consistent across chunked
+        encodes; callers append `headers.sequence_end()`."""
         with stage_scope("encode.pad"):
             frames = np.ascontiguousarray(frames_rgb)
             if frames.ndim != 4 or frames.shape[-1] != 3 or frames.dtype != np.uint8:
@@ -645,10 +690,9 @@ class TorchMPEG1IntraEncoder:
                     f"({MAX_WIDTH}x{MAX_HEIGHT}: 12-bit sequence-header "
                     "dimensions, slice start codes 0x01..0xAF)"
                 )
-            padded = pad_to_macroblocks(frames)
-        inputs = self._to_device((padded,))
+        inputs = self._to_device((frames,), "rgb")
         return self._run_and_assemble(lambda msb: self._enqueue_rgb(inputs, msb),
-                                      padded.shape[2] // 16, disp_w, disp_h, first_frame_index)
+                                      -(-disp_w // 16), disp_w, disp_h, first_frame_index)
 
     def assemble(self, seg, bits, disp_w: int, disp_h: int,
                  first_frame_index: int = 0) -> bytes:
@@ -678,7 +722,10 @@ class TorchMPEG1IntraEncoder:
 
     def encode_from_planes(self, y, cb, cr, first_frame_index: int = 0) -> bytes:
         """Encode 4:2:0 YCbCr planes directly: y (B, H, W) u8, cb/cr
-        (B, ceil(H/2), ceil(W/2)) u8 -> MPEG-1 video ES bytes."""
+        (B, ceil(H/2), ceil(W/2)) u8 -> MPEG-1 video ES bytes.  The planes
+        are copied to the device as they are (contiguous arrays are not
+        copied on the host) and edge-padded to whole macroblocks there
+        (see `_to_device`)."""
         with stage_scope("encode.pad"):
             y = np.ascontiguousarray(y)
             cb = np.ascontiguousarray(cb)
@@ -695,10 +742,9 @@ class TorchMPEG1IntraEncoder:
                 raise ValueError(
                     f"frame {disp_w}x{disp_h} exceeds MPEG-1 limits ({MAX_WIDTH}x{MAX_HEIGHT})"
                 )
-            planes = pad_planes_to_macroblocks(y, cb, cr)
-        inputs = self._to_device(planes)
+        inputs = self._to_device((y, cb, cr), "planes")
         return self._run_and_assemble(lambda msb: self._enqueue_planes(inputs, msb),
-                                      planes[0].shape[2] // 16, disp_w, disp_h, first_frame_index)
+                                      -(-disp_w // 16), disp_w, disp_h, first_frame_index)
 
     def encode_from_jpegs(self, jpegs, first_frame_index: int = 0,
                           intake: str = "auto") -> bytes:
@@ -764,6 +810,8 @@ class TorchMPEG1IntraEncoder:
             coeffs = [self._coeffs_to_device(a) for a in (yc, cbc, crc)]
         with stage_scope("encode.intake"):
             y, cb, cr = coeffs_to_planes(*coeffs, height, width)
+        if -height % 16 or -width % 16:
+            pad_sites["device"] += 1
         del coeffs  # the int32 coefficients are not held through the encode
         return self._run_and_assemble(
             lambda msb: self._enqueue_planes((y, cb, cr), msb),

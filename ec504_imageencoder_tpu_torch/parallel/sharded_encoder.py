@@ -13,12 +13,16 @@ where GSPMD partitions one jitted program.  Here the split is explicit:
 * one `EncodeCore` per distinct device of the mesh, built with the
   quantizer (a device appearing several times runs its shards one after
   another on its current stream);
-* the shards' slabs are made contiguous on the host (a second span
-  `encode.pad`); then each shard's slab is copied to its device
-  (`encode.h2d`) and launched there at once (`encode.enqueue`), its
-  slice headers numbered from its first MB row, so a card runs its shard
-  while the host copies the next; the host fetches nothing before every
-  shard is launched, and a regrow re-runs on the same copies;
+* the frames or planes are edge-padded to whole macroblocks on the host
+  (`np.pad`, counted in `mpeg1.pad_sites["host"]`) and the shards' slabs
+  made contiguous there (a second span `encode.pad`): the slabs are cut
+  by macroblock rows before any copy, so the padded rows must exist on
+  the host (one device pads on the device, after the copy); then each
+  shard's slab is copied to its device (`encode.h2d`) and launched there
+  at once (`encode.enqueue`), its slice headers numbered from its first
+  MB row, so a card runs its shard while the host copies the next; the
+  host fetches nothing before every shard is launched, and a regrow
+  re-runs on the same copies;
 * the batch splits unevenly over `data` (`mesh.split_batch`, as
   `torch.tensor_split`): the reference pads the batch with copies of its
   last frame because GSPMD needs an even split; the bytes are the same.
@@ -29,11 +33,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ec504_imageencoder_tpu_torch.models import mpeg1
 from ec504_imageencoder_tpu_torch.models.mpeg1 import (
     EncodeCore,
     TorchMPEG1IntraEncoder,
     correct_pipeline,
     correct_pipeline_planes,
+    pad_planes_to_macroblocks,
+    pad_to_macroblocks,
 )
 from ec504_imageencoder_tpu_torch.parallel import mesh as mesh_lib
 from ec504_imageencoder_tpu_torch.utils.profiling import stage_scope
@@ -71,15 +78,21 @@ class ShardedTorchMPEG1Encoder(TorchMPEG1IntraEncoder):
             )
         return n_data, n_rows
 
-    def _to_device(self, arrays):
-        """The host arrays cut into shards: a grid [i][j] of [device, first
-        MB row, slabs], as `mesh_lib.shard_host` lays it out.  The slabs
-        are host arrays until `_run_shards` first launches their shard."""
-        mbh = arrays[0].shape[1] // 16
+    def _to_device(self, arrays, kind: str):
+        """The caller's host arrays (`kind` as the base class takes them)
+        edge-padded to whole macroblocks on the host, then cut into shards:
+        a grid [i][j] of [device, first MB row, slabs], as
+        `mesh_lib.shard_host` lays it out.  The slabs are host arrays until
+        `_run_shards` first launches their shard."""
+        mbh = -(-arrays[0].shape[1] // 16)
         self._check_divisible(mbh)
         with stage_scope("encode.pad"):
+            padded = ((pad_to_macroblocks(*arrays),) if kind == "rgb"
+                      else pad_planes_to_macroblocks(*arrays))
+            if padded[0] is not arrays[0]:
+                mpeg1.pad_sites["host"] += 1
             return [[list(shard) for shard in row]
-                    for row in mesh_lib.shard_host(arrays, self.mesh, mbh)]
+                    for row in mesh_lib.shard_host(padded, self.mesh, mbh)]
 
     def _run_shards(self, shards, run):
         """Launch `run(core, first_row, *device slabs)` on every shard of the

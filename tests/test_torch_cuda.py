@@ -21,6 +21,7 @@ reference's numpy order, the same bits on the card as on the host.
 import ctypes
 import shutil
 import sys
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -691,13 +692,68 @@ def test_encode_from_coeffs_card_equals_cpu(cuda, h, w, quality):
         *coeffs, h, w)
 
 
-@pytest.mark.parametrize("shape, h, w", [((2, 5, 7), 16, 16), ((1, 150, 201), 150, 208),
-                                         ((3, 1, 1), 8, 8), ((2, 1080, 1920), 1088, 1920)])
-def test_edge_pad_on_card(cuda, shape, h, w):
+@pytest.mark.parametrize("shape, h, w, dims", [
+    ((2, 5, 7), 16, 16, (-2, -1)), ((1, 150, 201), 150, 208, (-2, -1)),
+    ((3, 1, 1), 8, 8, (-2, -1)), ((2, 1080, 1920), 1088, 1920, (-2, -1)),
+    ((2, 32, 48), 32, 48, (-2, -1)), ((2, 1080, 1920, 3), 1088, 1920, (1, 2)),
+    ((2, 35, 50, 3), 48, 64, (1, 2))])
+def test_edge_pad_on_card(cuda, shape, h, w, dims):
+    """np.pad's values on the planes' and the RGB frames' axes; an axis
+    already of its size gets no margin, and an aligned tensor comes back
+    as it is."""
     x = np.random.default_rng(h + w).integers(0, 256, shape, dtype=np.uint8)
-    want = np.pad(x, ((0, 0), (0, h - shape[1]), (0, w - shape[2])), mode="edge")
-    got = mpeg1.edge_pad(torch.from_numpy(x).to(cuda), h, w)
-    assert got.is_cuda and np.array_equal(got.cpu().numpy(), want)
+    pad = [(0, 0)] * x.ndim
+    pad[dims[0]], pad[dims[1]] = (0, h - shape[dims[0]]), (0, w - shape[dims[1]])
+    t = torch.from_numpy(x).to(cuda)
+    got = mpeg1.edge_pad(t, h, w, dims)
+    assert got.is_cuda and np.array_equal(got.cpu().numpy(), np.pad(x, pad, mode="edge"))
+    assert (got is t) == ((x.shape[dims[0]], x.shape[dims[1]]) == (h, w))
+
+
+# ---- macroblock padding on the card, after the copy -------------------------
+
+def _entry_arrays(entry, frames):
+    if entry == "encode":
+        return (frames,)
+    return tuple(np.ascontiguousarray(p) for p in (frames[..., 0], frames[:, ::2, ::2, 1],
+                                                   frames[:, ::2, ::2, 2]))
+
+
+@pytest.mark.parametrize("entry", ["encode_from_planes", "encode"])
+@pytest.mark.parametrize("quality", [50, 85])
+@pytest.mark.parametrize("h, w", [(1080, 1920), (35, 50), (32, 48)])
+def test_device_pad_card_equals_cpu(cuda, monkeypatch, entry, quality, h, w):
+    """The caller's unpadded frames or planes copied to the card and padded
+    there: the CPU path's bytes, and the reference's numpy encoder's; one
+    device pad a call where the size needs one, none where it is aligned."""
+    monkeypatch.setattr(mpeg1, "pad_sites", Counter())
+    frames = np.random.default_rng(h * w + quality).integers(0, 256, (2, h, w, 3), dtype=np.uint8)
+    arrays = _entry_arrays(entry, frames)
+    enc = TorchMPEG1IntraEncoder(quality=quality, device=cuda)
+    got = [getattr(enc, entry)(*arrays) for _ in range(2)]
+    aligned = h % 16 == 0 and w % 16 == 0
+    assert mpeg1.pad_sites == ({} if aligned else {"device": 2})
+    assert got[0] == got[1] == getattr(TorchMPEG1IntraEncoder(quality=quality, device="cpu"),
+                                       entry)(*arrays)
+    assert got[0] == getattr(MPEG1IntraEncoder(quality=quality, backend="numpy"), entry)(*arrays)
+
+
+def test_pad_sites_count_a_q85_planes_run_and_no_uhd_pad(cuda, monkeypatch):
+    """16 x 1080p planes at q=85 (the padded cell's call) pad on the card
+    once a call; UHD frames (2160 = 135 x 16 rows) pad nowhere."""
+    monkeypatch.setattr(mpeg1, "pad_sites", Counter())
+    rng = np.random.default_rng(85)
+    planes = _entry_arrays("encode_from_planes",
+                           rng.integers(0, 256, (16, 1080, 1920, 3), dtype=np.uint8))
+    enc = TorchMPEG1IntraEncoder(quality=85, device=cuda)
+    for _ in range(3):
+        enc.encode_from_planes(*planes)
+    assert mpeg1.pad_sites == {"device": 3}
+    uhd = rng.integers(0, 256, (2, 2160, 3840, 3), dtype=np.uint8)
+    enc = TorchMPEG1IntraEncoder(quality=50, device=cuda)
+    for _ in range(2):
+        enc.encode(uhd)
+    assert mpeg1.pad_sites == {"device": 3}
 
 
 # ---- the entry points on the card: the CLI and the C ABI shim ---------------

@@ -142,7 +142,8 @@ def test_decode_from_coeffs_matches_reference(h, w):
 @pytest.mark.parametrize("dtype", [np.uint8, np.int16])
 @pytest.mark.parametrize("shape, h, w", [((2, 5, 7), 16, 16), ((1, 8, 8), 8, 16),
                                          ((1, 150, 201), 150, 208), ((3, 1, 1), 8, 8),
-                                         ((1, 299, 401), 304, 416)])
+                                         ((1, 299, 401), 304, 416), ((2, 40, 64), 48, 64),
+                                         ((2, 32, 50), 32, 64), ((2, 32, 48), 32, 48)])
 def test_edge_pad_matches_numpy(shape, h, w, dtype):
     x = np.random.default_rng(h * w).integers(0, 256, shape).astype(dtype)
     want = np.pad(x, ((0, 0), (0, h - shape[1]), (0, w - shape[2])), mode="edge")

@@ -5,7 +5,8 @@
   the reference's numpy encoder; q=85 (the f32 DCT) the bytes of the
   unsharded port; the planes intake the reference's; `fuse=8`,
   `pack="fused"`, `debug_checks=True`, a forced regrow, uneven and short
-  batches the unsharded bytes.  Every shard runs the pipeline once a
+  batches the unsharded bytes; frames of 117 x 59 are padded on the host
+  (`pad_sites["host"]`) and keep those bytes.  Every shard runs the pipeline once a
   batch, its slice headers numbered from its first MB row
   (`or_slice_headers(first_row=)`, against the reference's whole-picture
   headers).  `encode_from_coeffs` raises NotImplementedError and an
@@ -28,6 +29,7 @@ import os
 import socket
 import subprocess
 import sys
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -142,6 +144,31 @@ def test_sharded_regrow(narrow, unsharded, shape):
     enc = _sharded(shape, quality=45, max_slice_bytes=8)
     assert enc.encode(narrow) == unsharded(45)
     assert enc.max_slice_bytes > 8
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (1, 4)])
+@pytest.mark.parametrize("entry", ["encode", "encode_from_planes"])
+@pytest.mark.parametrize("h,w", [(117, 59), (128, 64)])
+def test_sharded_encoder_pads_on_the_host(frames, monkeypatch, shape, entry, h, w):
+    """The sharded encoder cuts its slabs by macroblock rows on the host,
+    so it pads there (`np.pad`) before any copy: 117 x 59 frames (rows
+    and columns, odd chroma) give the bytes of the JAX package's numpy
+    encoder and of the unsharded port, which pads on its device; each
+    call counts one host pad and no device pad.  Aligned frames pad
+    nowhere."""
+    monkeypatch.setattr(mpeg1, "pad_sites", Counter())
+    clip = np.ascontiguousarray(frames[:, :h, :w])
+    arrays = ((clip,) if entry == "encode" else
+              tuple(np.ascontiguousarray(p) for p in (clip[..., 0], clip[:, ::2, ::2, 1],
+                                                      clip[:, ::2, ::2, 2])))
+    want = getattr(MPEG1IntraEncoder(quality=45, backend="numpy"), entry)(*arrays)
+    enc = _sharded(shape, quality=45)
+    for calls in (1, 2):
+        assert getattr(enc, entry)(*arrays) == want
+        assert mpeg1.pad_sites == ({"host": calls} if (h, w) != (128, 64) else {})
+    single = TorchMPEG1IntraEncoder(quality=45, device="cpu")
+    assert getattr(single, entry)(*arrays) == want
+    assert mpeg1.pad_sites == ({"host": 2, "device": 1} if (h, w) != (128, 64) else {})
 
 
 @pytest.mark.parametrize("shape,batch", [((2, 2), 3), ((8, 1), 1), ((4, 2), 5)])

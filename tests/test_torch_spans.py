@@ -3,7 +3,8 @@
 Under `utils.profiling.device_trace`, one call of each encoder entry
 (`encode_from_planes`, `encode_from_coeffs`, `encode`, `encode_compat`,
 and the sharded encoder's) writes its stage spans once each, in order,
-one after another inside the caller's own `record_function`;
+one after another inside the caller's own `record_function` (the planes
+and RGB entries pad on the device in `encode.edge_pad`, after the copy);
 `encode.levels` sits inside `encode.enqueue` on exactly the routes that
 call `plane_levels` (the f32 DCT and the generic `pack=` route, not the
 AAN kernel route), and on the RGB route `encode.rgb420` (colour and 4:2:0)
@@ -36,9 +37,9 @@ from ec504_imageencoder_tpu_torch.utils import profiling
 
 PORT = Path(__file__).resolve().parent.parent / "ec504_imageencoder_tpu_torch"
 CALLER = "caller.span"
-CORRECT = ["encode.pad", "encode.h2d", "encode.enqueue", "encode.fetch_bits",
+CORRECT = ["encode.pad", "encode.h2d", "encode.edge_pad", "encode.enqueue", "encode.fetch_bits",
            "encode.fetch_prefix", "encode.assemble", "encode.release"]
-COEFFS = CORRECT[:2] + ["encode.intake"] + CORRECT[2:]
+COEFFS = CORRECT[:2] + ["encode.intake"] + CORRECT[3:]
 COMPAT = ["encode.h2d", "encode.color", "encode.tables", "encode.enqueue",
           "encode.fetch_bits", "encode.fetch_prefix", "encode.fetch_planes", "encode.assemble"]
 H, W = 40, 56  # two macroblock rows and columns of padding
@@ -136,9 +137,10 @@ def _count_forward(monkeypatch):
 
 @pytest.mark.parametrize("max_slice_bytes", [None, 8])
 def test_sharded_encoder_spans(tmp_path, monkeypatch, max_slice_bytes):
-    """The sharded encoder makes the shards' slabs contiguous in a second
-    `encode.pad`, then copies each shard (`encode.h2d`) and launches it
-    (`encode.enqueue`, with its own `plane_levels`) before the next one.
+    """The sharded encoder pads on the host and makes the shards' slabs
+    contiguous in a second `encode.pad` (no `encode.edge_pad`), then
+    copies each shard (`encode.h2d`) and launches it (`encode.enqueue`,
+    with its own `plane_levels`) before the next one.
     A regrow launches every shard again on the same copies."""
     runs = _count_forward(monkeypatch)
     enc = ShardedTorchMPEG1Encoder(quality=80, mesh=make_mesh(2, 1, ["cpu"] * 2), device="cpu",
@@ -151,7 +153,7 @@ def test_sharded_encoder_spans(tmp_path, monkeypatch, max_slice_bytes):
     rerun = ["encode.enqueue"] * 2 + ["encode.fetch_bits"] if max_slice_bytes else []
     assert len(runs) == 2 + rerun.count("encode.enqueue")
     assert _children(tree, CALLER) == (["encode.pad"] * 2 + shards + ["encode.fetch_bits"]
-                                       + rerun + CORRECT[4:])
+                                       + rerun + CORRECT[5:])
     assert _children(tree, "encode.enqueue") == ["encode.levels"] * len(runs)
 
 
@@ -203,6 +205,7 @@ def test_regrow_spans_count_the_reruns(tmp_path, monkeypatch, intake):
     assert _children(tree, CALLER) == first + rerun + top[len(first):] + top
     assert sum(name == "encode.enqueue" for name, _ in tree) - calls == reruns
     assert sum(name == "encode.h2d" for name, _ in tree) == calls
+    assert sum(name == "encode.edge_pad" for name, _ in tree) == (calls if top is CORRECT else 0)
 
 
 @pytest.mark.parametrize("max_slice_bytes,passes", [(None, 1), (8, 2)])
