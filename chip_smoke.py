@@ -196,7 +196,15 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    prefix) with their byte counts, recorded, not claimed; at q=85 also
    the prefix fetch itself, pageable into a fresh array against
    fetch_prefix's pinned blocks reused from call to call, by CUDA
-   events, with its pinned fetches and the pinned blocks it created.
+   events, with its pinned fetches and the pinned blocks it created;
+28. the rate control (bit_rate): the count kernel (bit_count) on phase 4's
+   16 x 1080p planes against its twin run on the card (the same integer torch
+   ops), its CUDA-events time and its bound (1,280 + 31 x 64 x 8 integer
+   operations a block), its launch count; then encode() of the 16 x 1080p
+   frames at 50 Mbit/s and 25 frames/s: one bit_count launch a call,
+   every picture exactly 250,000 bytes or counted over the budget, the
+   scales chosen, the first two frames byte-equal to the CPU path, and
+   its frames/s.
 
 Phases 4, 8, 9, 17, 20 and 22 also print their prefix fetches
 (mpeg1.prefix_fetches): one pinned fetch a card encode call, none
@@ -793,6 +801,7 @@ def main() -> int:
         cuda_lut,
         cuda_pack,
         cuda_pack_split,
+        cuda_rate,
         cuda_vlc,
         cuda_vlc_compat,
         cuda_vlc_levels,
@@ -840,8 +849,9 @@ def main() -> int:
     # ---- 1. build -------------------------------------------------------
     t0 = time.perf_counter()
     _build.build(["vlc_fused4", "pack_fused4", "vlc_levels4", "vlc_compat", "lut_lookup",
-                  "pack_split"])
-    for mod in (cuda_vlc, cuda_pack, cuda_vlc_levels, cuda_vlc_compat, cuda_lut, cuda_pack_split):
+                  "pack_split", "bit_count"])
+    for mod in (cuda_vlc, cuda_pack, cuda_vlc_levels, cuda_vlc_compat, cuda_lut, cuda_pack_split,
+                cuda_rate):
         mod.load_kernel()
     cold_build_s = time.perf_counter() - t0
     for name, (secs, log) in sorted(_build.build_info.items()):
@@ -2075,6 +2085,49 @@ def main() -> int:
             del pinned
         del seg, bits_dev, dense, offs, cpu_dense, cpu_offs, rows
     del planes_dev
+
+    # ---- 28. the rate control: the count kernel and encode() at 50 Mbit/s ----
+    torch.cuda.empty_cache()
+    planes_rate = [torch.from_numpy(p).to(dev)
+                   for p in mpeg1.pad_planes_to_macroblocks(jy, jcb, jcr)]
+    reset_launches()
+    table = cuda_rate.bit_count(*planes_rate, core.intra_q, luts)
+    count_launches = read_launches()
+    _check_launches("bit_count", count_launches, ("bit_count",))
+    count_err = int((table - cuda_rate.bit_count_plain(*planes_rate, core.intra_q, luts))
+                    .abs().max())
+    print(f"bit_count vs twin (on the card), 16x1080p: table {tuple(table.shape)}, "
+          f"max_abs_err {count_err}")
+    if count_err:
+        raise AssertionError("bit_count disagrees with its twin")
+    times["bit_count"] = (
+        _event_ms(torch, lambda: cuda_rate.bit_count(*planes_rate, core.intra_q, luts), 20),
+        _event_ms(torch, lambda: cuda_rate.bit_count_plain(*planes_rate, core.intra_q, luts), 1),
+    )
+    work["bit_count"] = (plane_bytes_hd + 4 * table.numel(), n_blocks_hd * (1280 + 31 * 64 * 8))
+    del table, planes_rate
+    cbr = TorchMPEG1IntraEncoder(quality=QUALITY, bit_rate=50_000_000, device=dev)
+    mpeg1.rate_qscales.clear()
+    mpeg1.rate_overshoots = 0
+    reset_launches()
+    es_cbr = cbr.encode(frames)
+    _check_launches("encode, bit_rate 50 Mbit/s", read_launches(),
+                    ("bit_count", "vlc_fused4", "pack_fused4"))
+    if read_launches()["bit_count"] != 1:
+        raise AssertionError("a bit_rate call launched bit_count more than once")
+    pictures = es_cbr.split(b"\x00\x00\x01\x00")[1:]
+    sizes = {len(p.split(b"\x00\x00\x01\xb3")[0].split(b"\x00\x00\x01\xb8")[0]) + 4
+             for p in pictures}
+    print(f"encode at 50 Mbit/s, 16x1080p: scales {dict(sorted(mpeg1.rate_qscales.items()))}, "
+          f"{mpeg1.rate_overshoots} over budget, picture sizes {sorted(sizes)}, "
+          f"{mpeg1.rate_pad_bytes} zero bytes padded")
+    if mpeg1.rate_overshoots == 0 and sizes != {cbr.budget_bytes}:
+        raise AssertionError(f"bit_rate pictures of {sorted(sizes)} bytes, not {cbr.budget_bytes}")
+    _check_equal("encode, bit_rate, 2 frames", cbr.encode(frames[:2]),
+                 TorchMPEG1IntraEncoder(quality=QUALITY, bit_rate=50_000_000,
+                                        device="cpu").encode(frames[:2]))
+    fps, ms = _frames_per_s(torch, lambda: cbr.encode(frames), BATCH, 5)
+    print(f"encode 16x1080p at 50 Mbit/s: {fps:.2f} frames/s ({ms:.2f} ms per batch) {tag}")
     print(f"chip_smoke: the whole run took {time.perf_counter() - t_start:.1f} s {tag}")
 
     src = "ec504_imageencoder_tpu_torch/csrc/"
@@ -2116,6 +2169,9 @@ def main() -> int:
          route_counts["pack_split"], raw_err["pack_split"]),
         ("pack_pairs", "pack_fused4.cu", "ec504_imageencoder_tpu/ops/pallas_pack.py:610",
          route_counts["pack_pairs"], raw_err["pack_pairs"]),
+        ("bit_count", "bit_count.cu",
+         "none: the reference codes every picture at one quantizer_scale",
+         count_launches, count_err),
     ]
     kernels = []
     for name, cu, replaces, counts, err in rows:

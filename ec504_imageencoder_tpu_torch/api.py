@@ -60,10 +60,13 @@ def encode_video(
     fps: float = 25.0,
     gop_size: int = 15,
     device="cuda",
+    bit_rate: int | None = None,
 ) -> int:
     """One-call ISO-compliant encode of (B, H, W, 3) uint8 frames.  An fps
     with no MPEG-1 frame-rate code maps to code 3 (25 fps), as in the
-    reference (ROADMAP C-r2)."""
+    reference (ROADMAP C-r2).  bit_rate (bit/s, beyond the reference): the
+    encoder's rate control, every picture coded to exactly bit_rate / fps
+    (`TorchMPEG1IntraEncoder`)."""
     from ec504_imageencoder_tpu_torch.models.mpeg1 import (
         FRAME_RATE_CODES,
         TorchMPEG1IntraEncoder,
@@ -71,7 +74,8 @@ def encode_video(
 
     code = FRAME_RATE_CODES.get(fps, 3)
     enc = TorchMPEG1IntraEncoder(
-        quality=quality, frame_rate_code=code, gop_size=gop_size, device=device
+        quality=quality, frame_rate_code=code, gop_size=gop_size, device=device,
+        bit_rate=bit_rate,
     )
     return enc.encode_to_file(frames, path)
 

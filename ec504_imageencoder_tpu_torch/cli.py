@@ -8,7 +8,8 @@ and errors.  `--backend jax|numpy` is `--device cuda|cpu` here (default cuda:
 without CUDA the command exits with an error, it never encodes on the CPU
 unasked); `--debug-checks`, `--fuse` and `--pack` reach the encoder keywords
 that the reference sets through EC504_DEBUG_CHECKS, EC504_FUSE and
-EC504_VLC/EC504_PACK.
+EC504_VLC/EC504_PACK.  `--bit-rate` (beyond the reference) is the encoder's
+rate control: every picture coded to exactly bit_rate / frame rate.
 
     python -m ec504_imageencoder_tpu_torch.cli images/ -o out.mpeg
     mpeg-encode-torch images/ -o awesome_video.mpeg --mode compat \
@@ -90,6 +91,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="correct mode: 'fused4' = the fused-slot routes; the "
                         "others run the generic route with that raw-code "
                         "pack kernel (same bytes)")
+    p.add_argument("--bit-rate", type=int, default=None, metavar="BPS",
+                   help="correct mode, quality < 70: a fixed rate in bit/s (a "
+                        "multiple of 400); each picture is coded at the smallest "
+                        "quantizer_scale that fits bit_rate / frame rate and "
+                        "padded to exactly that size")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="capture a torch.profiler trace (Chrome trace JSON) "
                         "of the encode into DIR")
@@ -110,6 +116,8 @@ def main(argv=None) -> int:
         raise SystemExit(f"mpeg-encode-torch: {e}") from e
     quality = args.quality
     metrics = EncodeMetrics()
+    if args.bit_rate is not None and args.mode == "compat":
+        raise SystemExit("mpeg-encode-torch: --bit-rate is correct mode only")
 
     use_stream = args.stream and args.mode == "correct"
     if args.intake in ("ycbcr", "coeffs") and (not use_stream or args.workdir
@@ -184,6 +192,7 @@ def _encode_correct(args, device, metrics, source, frames, n_frames, res_w, res_
         debug_checks=args.debug_checks,
         fuse=args.fuse,
         pack=args.pack,
+        bit_rate=args.bit_rate,
     )
     if args.mesh:
         from ec504_imageencoder_tpu_torch.parallel import mesh as mesh_lib
@@ -194,10 +203,10 @@ def _encode_correct(args, device, metrics, source, frames, n_frames, res_w, res_
         nd, nr = (int(x) for x in args.mesh.split(","))
         devices = ["cpu"] * (nd * nr) if device.type == "cpu" else None
         mesh = mesh_lib.make_mesh(nd, nr, devices)
-        enc = ShardedTorchMPEG1Encoder(mesh=mesh, **kw)
+        enc = _encoder(ShardedTorchMPEG1Encoder, mesh=mesh, **kw)
         n_devices = len(mesh.distinct_devices())
     else:
-        enc = TorchMPEG1IntraEncoder(device=device, **kw)
+        enc = _encoder(TorchMPEG1IntraEncoder, device=device, **kw)
         n_devices = torch.cuda.device_count() if device.type == "cuda" else None
     if args.metrics:
         enc.metrics = metrics
@@ -253,6 +262,18 @@ def _encode_correct(args, device, metrics, source, frames, n_frames, res_w, res_
                 for i in range(len(chunk))
             ]
     return data, dumps
+
+
+def _encoder(cls, **kw):
+    """The encoder; with --bit-rate, its refusals of the flags (a quality of
+    70 or more, a rate the header cannot state, --mesh) as the CLI's
+    errors."""
+    try:
+        return cls(**kw)
+    except (ValueError, NotImplementedError) as e:
+        if kw["bit_rate"] is None:
+            raise
+        raise SystemExit(f"mpeg-encode-torch: {e}") from e
 
 
 if __name__ == "__main__":

@@ -40,7 +40,8 @@
 // every block's quantized DC from its pixel sum (the AAN DC is exactly
 // (sum + 16) >> 3) into shared memory, so the DC predictor of any block is
 // one shared read after a __syncthreads.  The tables (AC run/level LUT, DC
-// size VLCs, zigzag, qscale*W) are copied to shared memory once per block.
+// size VLCs, zigzag, qscale*W with the slice's picture's scale where the
+// caller gives one a picture) are copied to shared memory once per block.
 // The second pass walks the NB = 6 * mbw blocks (1536 at width 4096) in
 // groups of 128: a thread per block for the DCT (in registers) and the
 // quantization into a swizzled block-major layout (conflict-free both ways,
@@ -99,7 +100,8 @@ template <Store kStore>
 __global__ void __launch_bounds__(kThreads)
 vlc_slots_kernel(const uint8_t* __restrict__ y, const uint8_t* __restrict__ cb,
                  const uint8_t* __restrict__ cr, int mbh, int H, int W,
-                 const int32_t* __restrict__ qw, const int32_t* __restrict__ zigzag,
+                 const int32_t* __restrict__ qw, const int32_t* __restrict__ qscale,
+                 const int32_t* __restrict__ zigzag,
                  const int32_t* __restrict__ ac_code, const int32_t* __restrict__ ac_len,
                  const int32_t* __restrict__ dc_code, const int32_t* __restrict__ dc_len,
                  int32_t* __restrict__ out, size_t plane, int32_t* __restrict__ dct_viol) {
@@ -119,7 +121,7 @@ vlc_slots_kernel(const uint8_t* __restrict__ y, const uint8_t* __restrict__ cb,
 
   load_vlc_tables(s_ac, s_dcc, ac_code, ac_len, dc_code, dc_len, tid, kThreads);
   if (tid < 64) {
-    s_qw[tid] = qw[tid];
+    s_qw[tid] = qscale ? qw[tid] * qscale[b] : qw[tid];
     s_zpos[zigzag[tid]] = swizzle_slot(tid);
   }
 
@@ -219,7 +221,8 @@ vlc_slots_kernel(const uint8_t* __restrict__ y, const uint8_t* __restrict__ cb,
 
 template <Store kStore>
 int launch(const void* y, const void* cb, const void* cr, int batch, int H, int W,
-           const void* qw, const void* zigzag, const void* ac_code, const void* ac_len,
+           const void* qw, const void* qscale, const void* zigzag, const void* ac_code,
+           const void* ac_len,
            const void* dc_code, const void* dc_len, void* out, void* dct_viol, int device,
            void* stream) {
   if (H % 16 || W % 16 || (W / 16) * 6 > kMaxNB || batch < 0) return (int)cudaErrorInvalidValue;
@@ -232,8 +235,9 @@ int launch(const void* y, const void* cb, const void* cr, int batch, int H, int 
   const size_t plane = (size_t)rows * (W / 16) * 6 * plane_slots(kStore);
   vlc_slots_kernel<kStore><<<rows, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)y, (const uint8_t*)cb, (const uint8_t*)cr, mbh, H, W,
-      (const int32_t*)qw, (const int32_t*)zigzag, (const int32_t*)ac_code,
-      (const int32_t*)ac_len, (const int32_t*)dc_code, (const int32_t*)dc_len,
+      (const int32_t*)qw, (const int32_t*)qscale, (const int32_t*)zigzag,
+      (const int32_t*)ac_code, (const int32_t*)ac_len, (const int32_t*)dc_code,
+      (const int32_t*)dc_len,
       (int32_t*)out, plane, (int32_t*)dct_viol);
   return (int)cudaGetLastError();
 }
@@ -241,32 +245,38 @@ int launch(const void* y, const void* cb, const void* cr, int batch, int H, int 
 }  // namespace
 
 // out: (kFuse + 1, batch * H/16, 6 * W/16 * 64/kFuse) int32, contiguous.
+// qscale: null (qw is qscale * W for every picture), or (batch,) int32,
+// each picture's quantizer_scale (qw is then the intra matrix W, and
+// picture b quantizes with qscale[b] * W).
 extern "C" int vlc_fused4_launch(const void* y, const void* cb, const void* cr,
                                  int batch, int H, int W, const void* qw,
-                                 const void* zigzag, const void* ac_code,
-                                 const void* ac_len, const void* dc_code,
-                                 const void* dc_len, void* out, int device, void* stream) {
-  return launch<Store::kFused4>(y, cb, cr, batch, H, W, qw, zigzag, ac_code, ac_len, dc_code,
-                                dc_len, out, nullptr, device, stream);
+                                 const void* qscale, const void* zigzag,
+                                 const void* ac_code, const void* ac_len,
+                                 const void* dc_code, const void* dc_len, void* out,
+                                 int device, void* stream) {
+  return launch<Store::kFused4>(y, cb, cr, batch, H, W, qw, qscale, zigzag, ac_code, ac_len,
+                                dc_code, dc_len, out, nullptr, device, stream);
 }
 
 extern "C" int vlc_fused8_launch(const void* y, const void* cb, const void* cr,
                                  int batch, int H, int W, const void* qw,
-                                 const void* zigzag, const void* ac_code,
-                                 const void* ac_len, const void* dc_code,
-                                 const void* dc_len, void* out, int device, void* stream) {
-  return launch<Store::kFused8>(y, cb, cr, batch, H, W, qw, zigzag, ac_code, ac_len, dc_code,
-                                dc_len, out, nullptr, device, stream);
+                                 const void* qscale, const void* zigzag,
+                                 const void* ac_code, const void* ac_len,
+                                 const void* dc_code, const void* dc_len, void* out,
+                                 int device, void* stream) {
+  return launch<Store::kFused8>(y, cb, cr, batch, H, W, qw, qscale, zigzag, ac_code, ac_len,
+                                dc_code, dc_len, out, nullptr, device, stream);
 }
 
 // out: (2, batch * H/16, 64, 6 * W/16) int32 (codes, lens), contiguous;
 // dct_viol: (batch * H/16,) int32, zeroed.
 extern "C" int vlc_raw_launch(const void* y, const void* cb, const void* cr, int batch, int H,
-                              int W, const void* qw, const void* zigzag, const void* ac_code,
-                              const void* ac_len, const void* dc_code, const void* dc_len,
-                              void* out, void* dct_viol, int device, void* stream) {
-  return launch<Store::kRaw>(y, cb, cr, batch, H, W, qw, zigzag, ac_code, ac_len, dc_code,
-                             dc_len, out, dct_viol, device, stream);
+                              int W, const void* qw, const void* qscale, const void* zigzag,
+                              const void* ac_code, const void* ac_len, const void* dc_code,
+                              const void* dc_len, void* out, void* dct_viol, int device,
+                              void* stream) {
+  return launch<Store::kRaw>(y, cb, cr, batch, H, W, qw, qscale, zigzag, ac_code, ac_len,
+                             dc_code, dc_len, out, dct_viol, device, stream);
 }
 
 extern "C" const char* vlc_fused4_strerror(int err) {

@@ -75,8 +75,7 @@ class BitReader:
 
     def at_start_code(self) -> bool:
         self.align()
-        byte = self.pos >> 3
-        return self.data[byte : byte + 3] == b"\x00\x00\x01"
+        return _start_code_follows(self.data, self.pos >> 3)
 
     def next_start_code(self) -> int | None:
         """Align and scan to the next 00 00 01 xx; returns xx."""
@@ -88,6 +87,16 @@ class BitReader:
                 return self.data[byte + 3]
             byte += 1
         return None
+
+
+def _start_code_follows(data: bytes, byte: int) -> bool:
+    """True where data[byte:] is zero bytes then 00 00 01: a start code,
+    after the zero_byte stuffing that ISO 11172-2's next_start_code()
+    allows (the rate control pads pictures so)."""
+    if data[byte:byte + 2] != b"\x00\x00":
+        return False
+    one = data.find(b"\x01", byte + 2)
+    return one >= 0 and not data[byte:one].strip(b"\x00")
 
 
 def _prefix_decoder(pairs):
@@ -376,8 +385,7 @@ class _FastReader:
 
     def at_start_code(self) -> bool:
         self.align()
-        byte = self.pos >> 3
-        return self.data[byte : byte + 3] == b"\x00\x00\x01"
+        return _start_code_follows(self.data, self.pos >> 3)
 
     def next_start_code(self) -> int | None:
         self.align()

@@ -41,6 +41,16 @@ decoder (`io/jpeg.py::decode_batch`) decodes them to what the intake rule
 (`io/jpeg.py::intake_kind`) picks, then `encode_from_planes`,
 `encode_from_coeffs` or `encode` codes that.
 
+With `bit_rate` (the rate control, AAN route only) every picture is
+coded at its own quantizer_scale q*: the count kernel
+(`ops/cuda_rate.py::bit_count`) gives each slice's exact bits at every
+scale 1..31, `choose_qscales` picks per picture the smallest scale whose
+coded picture fits the budget (31 where none does), and B1 (or B6b, B6a,
+the generic route) and the slice headers take the (B,) scales from the
+device; the host reads them back from the fetched slice headers, and
+`assemble` pads every picture that fits with zero bytes to exactly the
+budget.
+
 On the CPU the kernels' plain twins run instead.
 
 The host part is the port's own copy of the reference's: quality to
@@ -51,12 +61,14 @@ While a profiler records, each call of the encoder runs as a sequence of
 spans on the calling thread (`utils.profiling.stage_scope`), one per stage:
 `encode.jpeg_decode` (`encode_from_jpegs`' host decode of the JPEGs),
 `encode.pad` (validation; the sharded encoder's host padding and slabs),
-`encode.h2d` (the caller's unpadded arrays copied to the device),
+`encode.h2d` (the caller's unpadded arrays copied to the device,
+`to_device`),
 `encode.edge_pad` (the planes or RGB frames edge-padded to whole
 macroblocks on the device), `encode.intake` (the coefficients intake's
 IDCT and device padding), `encode.enqueue` (the device pipeline's
 launches; inside it `encode.rgb420` around the RGB route's colour
-conversion and 4:2:0 subsampling, and `encode.levels` around
+conversion and 4:2:0 subsampling, `encode.rate` around the rate
+control's count launch and choice, and `encode.levels` around
 `plane_levels`), `encode.fetch_bits` (the bit counts, where the host
 waits for the device), `encode.fetch_prefix`
 (the used byte prefix), `encode.assemble` (`assemble`) and `encode.release`
@@ -68,15 +80,26 @@ each re-run.  The `Counter` `prefix_fetches` counts the prefix fetches by
 their host buffer: "pinned" (page-locked memory from PyTorch's caching
 host allocator, reused from call to call: slice buffers on a CUDA device)
 or "pageable" (`.cpu()`: CPU tensors and the sharded encoder's results).
+The `Counter` `h2d_copies` counts the arrays `to_device` copied by how:
+"staged" (a CUDA device) or "direct" (any other).
 The `Counter` `pad_sites` counts the calls whose frames or planes needed
 macroblock padding by where it was done: "device" (`edge_pad`, after the
 copy: every single-device entry) or "host" (`np.pad`, before it: the
 sharded encoder, which cuts the padded rows into slabs on the host).
+The rate control counts the scales it chose in the `Counter`
+`rate_qscales` (q* -> pictures), the pictures over the budget at scale 31
+in `rate_overshoots` and the zero bytes it padded with in
+`rate_pad_bytes`.
 """
 
 from __future__ import annotations
 
+import functools
+import os
+import threading
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
+from fractions import Fraction
 
 import numpy as np
 import torch
@@ -95,10 +118,12 @@ from ec504_imageencoder_tpu_torch.ops.cuda_pack import (
     pack_raw,
 )
 from ec504_imageencoder_tpu_torch.ops.cuda_pack_split import pack_split, pack_windows
+from ec504_imageencoder_tpu_torch.ops.cuda_rate import bit_count, choose_qscales
 from ec504_imageencoder_tpu_torch.ops.cuda_vlc import (
     Luts,
     fuse4_i32,
     levels_plain,
+    picture_weights,
     vlc_fused4,
     vlc_fused8,
 )
@@ -136,8 +161,37 @@ MAX_HEIGHT = 175 * 16  # 2800
 rgb420_passes = 0
 # `fetch_prefix` calls by host buffer, "pinned" or "pageable", since the last clear()
 prefix_fetches: Counter[str] = Counter()
+# `to_device` copies by "staged" or "direct", since the last clear(); callers may copy from many threads
+h2d_copies: Counter[str] = Counter()
+_h2d_copies_lock = threading.Lock()
 # calls whose inputs were padded to whole macroblocks, by "device" or "host", since the last clear()
 pad_sites: Counter[str] = Counter()
+# the rate control since the last reset: pictures by chosen quantizer_scale,
+# pictures over the budget at scale 31, zero bytes padded
+rate_qscales: Counter[int] = Counter()
+rate_overshoots = 0
+rate_pad_bytes = 0
+
+VBV_UNIT_BITS = 16384  # vbv_buffer_size counts 16 kbit
+BIT_RATE_UNIT = 400    # bit_rate counts 400 bit/s; 0x3FFFF is "variable"
+
+
+def rate_budget(bit_rate: int, frame_rate_code: int) -> tuple[int, int]:
+    """A fixed rate -> (each picture's budget in bytes, vbv_buffer_size):
+    bit_rate / picture_rate bits rounded down to whole bytes (the picture
+    rates of codes 1, 4 and 7 are 24000, 30000 and 60000 / 1001), and
+    ceil(budget x 8 / 16384).  Raise ValueError unless bit_rate / 400 is a
+    whole number in 1..262,142 (the sequence header's 18 bits, 0x3FFFF
+    excluded).  vbv_buffer_size always fits its 10 bits: the largest
+    budget, 104,856,800 bit/s at 23.976 frames/s, needs 267."""
+    units, rest = divmod(int(bit_rate), BIT_RATE_UNIT)
+    if bit_rate != int(bit_rate) or rest or not 1 <= units <= 0x3FFFE:
+        raise ValueError(f"bit_rate must be a multiple of 400 from 400 to "
+                         f"{0x3FFFE * BIT_RATE_UNIT} bit/s, got {bit_rate!r}")
+    fps = FRAME_RATE_VALUES[frame_rate_code]
+    rate = Fraction(round(fps * 1001), 1001) if fps != int(fps) else Fraction(int(fps))
+    budget = int(Fraction(int(bit_rate)) / rate // 8)
+    return budget, -(-budget * 8 // VBV_UNIT_BITS)
 
 
 def quality_to_quant(quality: int) -> tuple[np.ndarray, int]:
@@ -206,16 +260,18 @@ def pad_planes_to_macroblocks(y, cb, cr):
 
 def sequence_header_es(width: int, height: int, frame_rate_code: int = 3,
                        aspect_code: int = 1, vbv_size: int = 20,
-                       intra_matrix: np.ndarray | None = None) -> bytes:
+                       intra_matrix: np.ndarray | None = None,
+                       bit_rate_units: int = 0x3FFFF) -> bytes:
     """ISO 11172-2 §2.4.2.3 sequence header, with an optional intra
-    quantizer matrix (sent in zigzag order)."""
+    quantizer matrix (sent in zigzag order); bit_rate_units in 400 bit/s,
+    0x3FFFF (the default) for a variable rate."""
     w = BitWriter()
     w.put_bytes(headers.SEQUENCE_START)
     w.put(width, 12)
     w.put(height, 12)
     w.put(aspect_code, 4)
     w.put(frame_rate_code, 4)
-    w.put(0x3FFFF, 18)  # variable bitrate
+    w.put(bit_rate_units, 18)
     w.put(1, 1)         # marker
     w.put(vbv_size, 10)
     w.put(0, 1)         # constrained_parameters_flag
@@ -307,10 +363,11 @@ class EncodeCore(LutCore):
     `dct_impl` ("aan" or "f32"), on the AAN production route `fuse` (4: B1
     and B2; 8: B6b and B6c), and with a `pack` other than "fused4" the
     generic route with that raw-code pack kernel (see the module
-    docstring)."""
+    docstring).  With `budget_bytes` (the rate control; "aan" only) each
+    picture is coded at its own quantizer_scale, chosen on the device."""
 
     def __init__(self, intra_q: np.ndarray, qscale: int, dct_impl: str, fuse: int = 4,
-                 pack: str = "fused4"):
+                 pack: str = "fused4", budget_bytes: int | None = None):
         super().__init__(Luts.default("cpu"))
         if dct_impl not in DCT_IMPLS:
             raise ValueError(f"dct_impl must be 'aan' or 'f32', got {dct_impl!r}")
@@ -321,6 +378,9 @@ class EncodeCore(LutCore):
         self.fuse = fuse
         self.pack = pack
         self.qscale = int(qscale)
+        if budget_bytes is not None and dct_impl != "aan":
+            raise ValueError("the rate control (budget_bytes) runs on the AAN route only")
+        self.budget_bytes = budget_bytes
         iq = torch.as_tensor(np.asarray(intra_q), dtype=torch.int32)
         self.register_buffer("intra_q", iq)
         self.register_buffer("qw", iq * self.qscale)
@@ -329,6 +389,9 @@ class EncodeCore(LutCore):
                 first_row: int = 0):
         """y (B, H, W) u8, cb/cr (B, H/2, W/2) u8, H and W multiples of 16
         -> (seg (B, H/16, max_slice_bytes) u8, nbits (B, H/16) int32).
+        With `budget_bytes` each picture's quantizer_scale is chosen on the
+        device in the span `encode.rate` (`bit_count`, then
+        `choose_qscales`); the slots and the slice headers take it.
         first_row: the picture's MB row of the planes' first (a row
         shard's offset); it numbers the slice headers.
 
@@ -342,35 +405,44 @@ class EncodeCore(LutCore):
         bsz, h, _ = y.shape
         mbh = h // 16
         mw = max_slice_bytes // 4
+        qs, qw = None, self.qw  # qw: the kernels' weights, with qs the intra matrix
+        if self.budget_bytes is not None:
+            with stage_scope("encode.rate"):
+                qs = choose_qscales(bit_count(y, cb, cr, self.intra_q, self.luts()),
+                                    self.budget_bytes)
+            qw = self.intra_q
         if self.pack in RAW_PACKS:
-            codes, lens = self.raw_slots(y, cb, cr)
+            codes, lens = self.raw_slots(y, cb, cr, qs)
             seg, nbits = RAW_PACKS[self.pack](codes, lens, mw, bit_offset=SLICE_HEADER_BITS)
             if debug_checks:
                 nbits = negate_violations(nbits, slot_violations(codes, lens))
         elif debug_checks and self.dct_impl == "aan":
-            codes, lens, viol = vlc_raw(y, cb, cr, self.qw, self.luts())  # (R, 64, NB)
+            codes, lens, viol = vlc_raw(y, cb, cr, qw, self.luts(), qs)  # (R, 64, NB)
             seg, nbits = pack_checked(codes.transpose(1, 2), lens.transpose(1, 2), mw, viol)
         elif debug_checks:
             seg, nbits = pack_checked(*self.raw_slots(y, cb, cr), mw)
         elif self.dct_impl == "aan" and self.fuse == 8:
-            words, flens = vlc_fused8(y, cb, cr, self.qw, self.luts())
+            words, flens = vlc_fused8(y, cb, cr, qw, self.luts(), qs)
             seg, nbits = pack_fused8(words, flens, mw, bit_offset=SLICE_HEADER_BITS)
         else:
             if self.dct_impl == "aan":
-                slots = vlc_fused4(y, cb, cr, self.qw, self.luts())
+                slots = vlc_fused4(y, cb, cr, qw, self.luts(), qs)
             else:
                 levels, preds = plane_levels(y, cb, cr, self.qw, self.zigzag)
                 slots = vlc_levels4(levels, preds, self.luts())
             seg, nbits = pack_fused4(*slots, mw, bit_offset=SLICE_HEADER_BITS)
-        seg = or_slice_headers(seg.view(bsz, mbh, max_slice_bytes), self.qscale, first_row)
+        seg = or_slice_headers(seg.view(bsz, mbh, max_slice_bytes),
+                               self.qscale if qs is None else qs, first_row)
         return seg, nbits.view(bsz, mbh)
 
-    def raw_slots(self, y, cb, cr):
+    def raw_slots(self, y, cb, cr, qscales=None):
         """The reference's generic emission (`_emit_and_pack_generic`):
         `plane_levels` with this core's DCT, then 64 slots per block, MB
         header and EOB folded in, through kernel B5's lookups -> (codes,
-        lens) int32 (R, NB * 64) in stream order."""
-        levels, preds = plane_levels(y, cb, cr, self.qw, self.zigzag, self.dct_impl)
+        lens) int32 (R, NB * 64) in stream order.  qscales: each picture's
+        scale (the rate control), else the core's one."""
+        qw = self.qw if qscales is None else picture_weights(self.intra_q, qscales)
+        levels, preds = plane_levels(y, cb, cr, qw, self.zigzag, self.dct_impl)
         comp = torch.arange(levels.shape[1], device=y.device) % 6
         codes, lens = block_streams_lut(levels, preds, comp < 4, comp == 0)
         r = codes.shape[0]
@@ -494,6 +566,45 @@ def fetch_prefix(seg_dev, need_bits: int, cap: int) -> np.ndarray:
         return prefix.cpu().numpy()
 
 
+STAGING_CHUNK = 4 << 20  # bytes a staging thread copies before the card takes them
+
+
+@functools.lru_cache(maxsize=1)
+def staging_threads() -> ThreadPoolExecutor:
+    """The host threads that fill `to_device`'s page-locked staging memory."""
+    return ThreadPoolExecutor(min(8, os.cpu_count() or 1), thread_name_prefix="h2d")
+
+
+def to_device(a: np.ndarray, device) -> torch.Tensor:
+    """One host array, copied as it is to `device`.
+
+    To a CUDA device the bytes go through page-locked memory from PyTorch's
+    caching host allocator (the block serves the next copy of its size):
+    `staging_threads` copy it in `STAGING_CHUNK`s, and each chunk, once
+    copied, goes to the card by an asynchronous copy on the current stream,
+    while the threads fill the next.  A pageable copy runs through CUDA's
+    own small staging buffers on the calling thread alone.  The
+    caller's array is read to its end before this returns, as a pageable
+    copy reads it.  Counted in `h2d_copies`."""
+    src = np.ascontiguousarray(a)
+    staged = torch.device(device).type == "cuda"
+    with _h2d_copies_lock:
+        h2d_copies["staged" if staged else "direct"] += 1
+    if not staged:
+        return torch.from_numpy(src).to(device)
+    flat = src.reshape(-1).view(np.uint8)
+    host = torch.empty(flat.nbytes, dtype=torch.uint8, pin_memory=True)
+    out = torch.empty(src.shape, dtype=torch.from_numpy(src).dtype, device=device)
+    stage, dst = host.numpy(), out.view(-1).view(torch.uint8)
+    starts = range(0, flat.nbytes, STAGING_CHUNK)
+    jobs = [staging_threads().submit(np.copyto, stage[lo:lo + STAGING_CHUNK],
+                                     flat[lo:lo + STAGING_CHUNK]) for lo in starts]
+    for lo, job in zip(starts, jobs):
+        job.result()
+        dst[lo:lo + STAGING_CHUNK].copy_(host[lo:lo + STAGING_CHUNK], non_blocking=True)
+    return out
+
+
 def encode_decoded(enc, kind: str, arrays: tuple, geom: dict,
                    first_frame_index: int = 0) -> bytes:
     """A batch that `io/jpeg.py::decode_batch` decoded to `kind`, coded by
@@ -542,13 +653,34 @@ class TorchMPEG1IntraEncoder:
     debug_checks=True is the sanitizer (the reference's
     EC504_DEBUG_CHECKS=1): the device pipeline runs its raw-slot routes
     with the invariant checks (see the module docstring), the bytes stay
-    the same, and a violation raises RuntimeError."""
+    the same, and a violation raises RuntimeError.
+
+    bit_rate (bit/s; None, the default: one quantizer_scale, the
+    quality's) is the rate control, a widening beyond the JAX package:
+    every picture gets a budget of B = bit_rate / picture_rate bits,
+    rounded down to whole bytes, and is coded at q*, the smallest
+    quantizer_scale 1..31 whose coded picture (its picture header and every
+    slice, byte-aligned as the stream holds them, up to the next start
+    code) fits in B; bits are not monotone in the scale, so every scale is
+    tried.  Where none fits, q* = 31 and the picture stays over budget
+    (`rate_overshoots` counts it); every other picture is padded with zero
+    bytes before the next start code to exactly B (ISO 11172-2's
+    next_start_code() allows any number).  The matrix stays the quality's.
+    The sequence header carries bit_rate / 400 and vbv_buffer_size =
+    ceil(8 B / 16384); vbv_delay stays 0xFFFF: no VBV model is run (a
+    departure from a constant-rate stream's VBV), and each picture holds
+    at most one picture period's bits.  Nothing is carried from call to
+    call.  It applies to every entry point (`encode`, `encode_from_planes`,
+    `encode_from_coeffs`, `encode_from_jpegs`) on the AAN route: quality
+    >= 70 (or dct_impl="f32") raises ValueError, as does a bit_rate that
+    is not a multiple of 400 in 400..104,856,800 (see `rate_budget`)."""
 
     def __init__(self, quality: int = 50, frame_rate_code: int = 3,
                  gop_size: int = 15, max_slice_bytes: int | None = None, *,
                  dct_impl: str = "auto", color_range: str = "studio",
                  grow_slices: bool = True, debug_checks: bool = False,
-                 fuse: int = 4, pack: str = "fused4", device="cuda"):
+                 fuse: int = 4, pack: str = "fused4", bit_rate: int | None = None,
+                 device="cuda"):
         if color_range not in ("studio", "full"):
             raise ValueError(f"color_range must be 'studio' or 'full', got {color_range!r}")
         if dct_impl == "auto":
@@ -558,11 +690,18 @@ class TorchMPEG1IntraEncoder:
         if fuse not in FUSES:
             raise ValueError(f"fuse must be 4 or 8, got {fuse!r}")
         _check_pack(pack)
+        if bit_rate is not None and (quality >= 70 or dct_impl != "aan"):
+            raise ValueError(f"bit_rate needs the AAN route (quality < 70), got quality "
+                             f"{quality} with dct_impl {dct_impl!r}")
         self.quality = quality
         self.dct_impl = dct_impl
         self.color_range = color_range
         self.frame_rate_code = frame_rate_code
         self.fps = FRAME_RATE_VALUES[frame_rate_code]
+        self.bit_rate = bit_rate
+        # the rate control's picture budget (bytes) and vbv_buffer_size
+        self.budget_bytes, self.vbv_size = (None, 20) if bit_rate is None else rate_budget(
+            bit_rate, frame_rate_code)
         self.gop_size = gop_size
         # None: sized from (quality, frame width) at the first encode.  An
         # explicit size is a starting size: an overflowing slice regrows it
@@ -580,7 +719,7 @@ class TorchMPEG1IntraEncoder:
         self.intra_q = np.array(intra_q, dtype=np.int32)
         self.qscale = int(qscale)
         self.core = EncodeCore(self.intra_q, self.qscale, self.dct_impl, self.fuse,
-                               self.pack).to(self.device)
+                               self.pack, self.budget_bytes).to(self.device)
 
     @classmethod
     def from_reference(cls, enc, device="cuda", **kw) -> "TorchMPEG1IntraEncoder":
@@ -607,12 +746,12 @@ class TorchMPEG1IntraEncoder:
         """The caller's unpadded host arrays, `kind` "rgb" ((B, H, W, 3)
         frames) or "planes" (Y, Cb, Cr) -> the device inputs of
         `_enqueue_rgb` and `_enqueue_planes`: each array copied to the
-        device as it is (`encode.h2d`), then edge-padded there to whole
+        device as it is (`encode.h2d`, `to_device`), then edge-padded there to whole
         macroblocks (`encode.edge_pad`: `edge_pad_frames` or
         `edge_pad_planes`; counted in `pad_sites["device"]` where it pads),
         once a call: a regrow re-runs on the same padded tensors."""
         with stage_scope("encode.h2d"):
-            inputs = tuple(torch.from_numpy(a).to(self.device) for a in arrays)
+            inputs = tuple(to_device(a, self.device) for a in arrays)
         with stage_scope("encode.edge_pad"):
             padded = (edge_pad_frames(*inputs),) if kind == "rgb" else edge_pad_planes(*inputs)
         if padded[0] is not inputs[0]:
@@ -656,9 +795,14 @@ class TorchMPEG1IntraEncoder:
         """`_run_with_regrow`, then `assemble` of what it fetched.  The
         fetched prefix's host buffer is given back in a span of its own:
         a pageable one is unmapped, which takes milliseconds at tens of MB;
-        a pinned one returns to the caching host allocator."""
+        a pinned one returns to the caching host allocator.  The rate
+        control's scales are counted from the fetched slice headers (the
+        quantizer_scale bits of each picture's first slice): no copy of
+        their own."""
         seg, bits = self._run_with_regrow(run_once, mbw)
         self._record(bits, mbw)
+        if self.budget_bytes is not None:
+            rate_qscales.update((seg[:, 0, 4] >> 3).tolist())
         with stage_scope("encode.assemble"):
             stream = self.assemble(seg, bits, disp_w, disp_h, first_frame_index)
         with stage_scope("encode.release"):
@@ -701,24 +845,49 @@ class TorchMPEG1IntraEncoder:
 
         seg may instead be the nested row list of
         `ops.bitpack.split_compact_slices` (each slice already trimmed to
-        its bytes), as the reference's `assemble` takes it."""
+        its bytes), as the reference's `assemble` takes it.
+
+        With the rate control (`bit_rate`) the sequence header carries the
+        rate and vbv_buffer_size, and each picture that fits the budget is
+        padded with zero bytes to exactly `budget_bytes` (counted in
+        `rate_pad_bytes`; one over it, in `rate_overshoots`)."""
+        global rate_overshoots, rate_pad_bytes
         compacted = isinstance(seg, list)
-        out = bytearray()
+        rate_units = 0x3FFFF if self.bit_rate is None else self.bit_rate // BIT_RATE_UNIT
+        if not compacted:  # each slice's used bytes as a slice of one flat view
+            n_slices, width = seg.shape[1:]
+            flat = memoryview(np.ascontiguousarray(seg, dtype=np.uint8).reshape(-1))
+            used = ((np.asarray(bits, dtype=np.int64) + 7) // 8).tolist()
+        if self.budget_bytes is not None:
+            zeros = memoryview(bytes(self.budget_bytes))
+        parts = []  # joined once: one allocation and one copy of the stream
         for i in range(len(seg) if compacted else seg.shape[0]):
             gi = first_frame_index + i
             if gi % self.gop_size == 0:
-                out += sequence_header_es(disp_w, disp_h, self.frame_rate_code,
-                                          intra_matrix=self.intra_q)
-                out += gop_header_es(gi, self.fps)
-            out += headers.picture_header(temporal_ref=gi % self.gop_size)
+                parts.append(sequence_header_es(disp_w, disp_h, self.frame_rate_code,
+                                                vbv_size=self.vbv_size, intra_matrix=self.intra_q,
+                                                bit_rate_units=rate_units))
+                parts.append(gop_header_es(gi, self.fps))
+            picture = headers.picture_header(temporal_ref=gi % self.gop_size)
+            parts.append(picture)
+            size = len(picture)
             if compacted:
                 for row in seg[i]:
-                    out += bytes(row)
+                    parts.append(bytes(row))
+                    size += len(parts[-1])
             else:
-                for s in range(seg.shape[1]):
-                    nb = (int(bits[i, s]) + 7) // 8
-                    out += bytes(seg[i, s, :nb])
-        return bytes(out)
+                for s, nb in enumerate(used[i]):
+                    off = (i * n_slices + s) * width
+                    parts.append(flat[off:off + nb])
+                    size += nb
+            if self.budget_bytes is not None:
+                pad = self.budget_bytes - size
+                if pad >= 0:
+                    parts.append(zeros[:pad])
+                    rate_pad_bytes += pad
+                else:
+                    rate_overshoots += 1
+        return b"".join(parts)
 
     def encode_from_planes(self, y, cb, cr, first_frame_index: int = 0) -> bytes:
         """Encode 4:2:0 YCbCr planes directly: y (B, H, W) u8, cb/cr

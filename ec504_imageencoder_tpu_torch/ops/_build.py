@@ -51,6 +51,7 @@ KERNELS = frozenset({
     "vlc_fused4", "vlc_fused8", "vlc_raw", "vlc_levels4", "f32_levels", "lut_lookup",
     "vlc_compat_slots", "vlc_compat_fused4", "compat_color", "pack_fused4",
     "pack_fused4_checked", "pack_fused8", "pack_raw", "pack_pairs", "pack_windows", "pack_split",
+    "bit_count",
 })
 # kernel launches since the last `launches.clear()`, by name in KERNELS
 launches: Counter[str] = Counter()

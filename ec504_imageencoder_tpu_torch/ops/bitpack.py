@@ -235,18 +235,23 @@ def words_to_bytes(words: torch.Tensor) -> torch.Tensor:
     return b.to(torch.uint8).reshape(*words.shape[:-1], words.shape[-1] * 4)
 
 
-def or_slice_headers(seg: torch.Tensor, qscale: int, first_row: int = 0) -> torch.Tensor:
+def or_slice_headers(seg: torch.Tensor, qscale, first_row: int = 0) -> torch.Tensor:
     """OR the 38-bit slice header into bytes 0..4 of every (B, mbh, msb)
     slice segment, in place: 00 00 01 vpos [qscale<<3].  The pack leaves
-    those bits zero (bit_offset=38).  The segments are MB rows first_row ..
-    first_row + mbh - 1 of their picture (a row shard's offset), so vpos
-    runs from first_row + 1."""
+    those bits zero (bit_offset=38).  qscale: one int for every slice, or
+    a (B,) integer tensor on seg's device, each picture's (the rate
+    control's).  The segments are MB rows first_row .. first_row + mbh - 1
+    of their picture (a row shard's offset), so vpos runs from
+    first_row + 1."""
     mbh = seg.shape[1]
     hdr = torch.zeros((mbh, 5), dtype=torch.uint8, device=seg.device)
     hdr[:, 2] = 1
     hdr[:, 3] = torch.arange(first_row + 1, first_row + mbh + 1, dtype=torch.uint8,
                              device=seg.device)
-    hdr[:, 4] = (qscale & 0x1F) << 3
+    if isinstance(qscale, torch.Tensor):
+        seg[..., 4] |= ((qscale & 0x1F) << 3).to(torch.uint8)[:, None]
+    else:
+        hdr[:, 4] = (qscale & 0x1F) << 3
     seg[..., :5] |= hdr
     return seg
 

@@ -39,9 +39,9 @@ MAX_WIDTH = 4096  # the kernel keeps one slice's DC values in shared memory
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_LAUNCH = [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P]
+_LAUNCH = [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P]
 _ARGTYPES = {"vlc_fused4_launch": _LAUNCH, "vlc_fused8_launch": _LAUNCH,
-             "vlc_raw_launch": [*_LAUNCH[:13], _P, _I, _P]}
+             "vlc_raw_launch": [*_LAUNCH[:14], _P, _I, _P]}
 
 
 class Luts(NamedTuple):
@@ -142,34 +142,47 @@ def fuse4_i32(codes, lens):
     return tuple(to_i32_bits(t) for t in fuse4(codes.reshape(r, -1), lens.reshape(r, -1)))
 
 
-def block_slots(y, cb, cr, qw, luts: Luts):
+def picture_weights(qw, qscales=None):
+    """The quantizer weights of the kernels' `qw` and `qscales` arguments:
+    qw itself (8, 8), or with a (B,) scale a picture the (B, 1, 1, 1, 8,
+    8) products qscales[b] * qw, which broadcast over `blockize`'s blocks."""
+    return qw if qscales is None else qscales.view(-1, 1, 1, 1, 1, 1) * qw
+
+
+def block_slots(y, cb, cr, qw, luts: Luts, qscales=None):
     """The plain integer-DCT pipeline of B1 and B6a: padded planes ->
     (codes, lens) int64 (R, NB, 64) per slice row in stream order, MB
     header and EOB folded in, and the AAN coefficients (B, mbh, mbw, 6,
     8, 8) int32."""
     f = aan_dct(blockize(y, cb, cr))
-    return (*level_slots(*coeff_levels(f, qw, luts.zigzag), luts), f)
+    return (*level_slots(*coeff_levels(f, picture_weights(qw, qscales), luts.zigzag), luts), f)
 
 
-def vlc_fused4_plain(y, cb, cr, qw, luts: Luts):
+def vlc_fused4_plain(y, cb, cr, qw, luts: Luts, qscales=None):
     """Plain twin of the kernel: same arguments, same outputs."""
-    codes, lens, _ = block_slots(y, cb, cr, qw, luts)
+    codes, lens, _ = block_slots(y, cb, cr, qw, luts, qscales)
     return fuse4_i32(codes, lens)
 
 
-def vlc_fused8_plain(y, cb, cr, qw, luts: Luts):
+def vlc_fused8_plain(y, cb, cr, qw, luts: Luts, qscales=None):
     """Plain twin of B6b: same arguments, same outputs."""
-    codes, lens, _ = block_slots(y, cb, cr, qw, luts)
+    codes, lens, _ = block_slots(y, cb, cr, qw, luts, qscales)
     r = codes.shape[0]
     words, flens = fuse8(*fuse4(codes.reshape(r, -1), lens.reshape(r, -1)))
     return tuple(to_i32_bits(w) for w in words), flens.to(torch.int32)
 
 
-def check_planes(y, cb, cr, qw, luts: Luts) -> None:
+def check_planes(y, cb, cr, qw, luts: Luts, qscales=None) -> None:
     """Raise unless the arguments are what B1, B6a and B6b take."""
     check_plane_shapes(y, cb, cr)
     check_matrix("qw", qw, y.device)
     luts.check(y.device)
+    if qscales is not None:
+        if qscales.dtype != torch.int32 or tuple(qscales.shape) != (y.shape[0],):
+            raise TypeError(f"qscales must be int32 ({y.shape[0]},), got "
+                            f"{qscales.dtype} {tuple(qscales.shape)}")
+        if qscales.device != y.device:
+            raise ValueError(f"qscales is on {qscales.device}, the input on {y.device}")
 
 
 def check_plane_shapes(y, cb, cr) -> None:
@@ -201,7 +214,7 @@ def check_matrix(name: str, m: torch.Tensor, device) -> None:
         raise ValueError(f"{name} is on {m.device}, the input on {device}")
 
 
-def _launch(fuse: int, y, cb, cr, qw, luts: Luts) -> torch.Tensor:
+def _launch(fuse: int, y, cb, cr, qw, luts: Luts, qscales=None) -> torch.Tensor:
     """Launch the kernel at fusion level `fuse` on CUDA tensors ->
     (fuse + 1, R, NB * 64 / fuse) int32: the word planes, then the
     lengths."""
@@ -209,30 +222,33 @@ def _launch(fuse: int, y, cb, cr, qw, luts: Luts) -> torch.Tensor:
     out = torch.empty((fuse + 1, bsz * (h // 16), (w // 16) * 6 * (64 // fuse)),
                       dtype=torch.int32, device=y.device)
     _build.launch(load_kernel, f"vlc_fused{fuse}", y.device, y, cb, cr, bsz, h, w,
-                  qw, *luts, out)
+                  qw, qscales, *luts, out)
     return out
 
 
-def vlc_fused4(y, cb, cr, qw, luts: Luts):
+def vlc_fused4(y, cb, cr, qw, luts: Luts, qscales=None):
     """Planes y (B, H, W) u8, cb/cr (B, H/2, W/2) u8 (H, W multiples of 16),
     qw (8, 8) int32 = qscale * intra matrix ->
     (v0, v1, v2, v3, flens), each (B * H/16, 6 * W/16 * 16) int32: per
     slice, the fused slots of its blocks in stream order; v0..v3 hold the
-    u32 words (most significant first) of values of flens <= 128 bits."""
-    check_planes(y, cb, cr, qw, luts)
+    u32 words (most significant first) of values of flens <= 128 bits.
+    qscales: None, or (B,) int32 on the planes' device, each picture's
+    quantizer_scale; qw is then the intra matrix itself, and picture b is
+    quantized with qscales[b] * qw (the rate control's scales)."""
+    check_planes(y, cb, cr, qw, luts, qscales)
     if y.device.type == "cpu":
-        return vlc_fused4_plain(y, cb, cr, qw, luts)
-    return tuple(_launch(4, y, cb, cr, qw, luts).unbind(0))
+        return vlc_fused4_plain(y, cb, cr, qw, luts, qscales)
+    return tuple(_launch(4, y, cb, cr, qw, luts, qscales).unbind(0))
 
 
-def vlc_fused8(y, cb, cr, qw, luts: Luts):
-    """The same planes and qw as `vlc_fused4` ->
+def vlc_fused8(y, cb, cr, qw, luts: Luts, qscales=None):
+    """The same planes, qw and qscales as `vlc_fused4` ->
     (words (w0, ..., w7), flens), each (B * H/16, 6 * W/16 * 8) int32: per
     slice, the 8:1-fused slots of its blocks in stream order; w0..w7 hold
     the u32 words (most significant first) of values of flens <= 256
     bits."""
-    check_planes(y, cb, cr, qw, luts)
+    check_planes(y, cb, cr, qw, luts, qscales)
     if y.device.type == "cpu":
-        return vlc_fused8_plain(y, cb, cr, qw, luts)
-    planes = _launch(8, y, cb, cr, qw, luts).unbind(0)
+        return vlc_fused8_plain(y, cb, cr, qw, luts, qscales)
+    planes = _launch(8, y, cb, cr, qw, luts, qscales).unbind(0)
     return planes[:8], planes[8]

@@ -50,12 +50,17 @@ class ShardedTorchMPEG1Encoder(TorchMPEG1IntraEncoder):
     """TorchMPEG1IntraEncoder whose device pipeline runs across a mesh.
 
     Same host-side API, keywords (debug_checks, fuse, pack, dct_impl reach
-    every shard) and identical bytes out; the batch axis shards over
+    every shard; bit_rate raises NotImplementedError) and identical bytes out; the batch axis shards over
     `data` and image rows over `rows`.  mesh=None takes `make_mesh()`:
     every visible CUDA device on `data`.  `device` defaults to the mesh's
     first device and only places the base encoder's own core."""
 
     def __init__(self, *args, mesh=None, **kwargs):
+        if kwargs.get("bit_rate") is not None:
+            raise NotImplementedError(
+                "the rate control (bit_rate) is single-device: each picture's scale comes "
+                "from all of its slices, which a rows mesh splits; use TorchMPEG1IntraEncoder"
+            )
         self.mesh = mesh if mesh is not None else mesh_lib.make_mesh()
         kwargs.setdefault("device", self.mesh.devices[0][0])
         super().__init__(*args, **kwargs)

@@ -96,8 +96,11 @@ def test_only_the_seam_calls_entry_points_or_counts(path):
 
 
 def test_the_counter_has_the_sixteen_kernels():
-    assert len(_build.KERNELS) == 16
+    """The sixteen kernels of the bring-up and, since the rate control,
+    the count kernel."""
+    assert len(_build.KERNELS) == 17
     assert "pack_fused4_checked" in _build.KERNELS and "compat_color" in _build.KERNELS
+    assert "bit_count" in _build.KERNELS
     assert isinstance(_build.launches, Counter)
 
 
@@ -108,6 +111,7 @@ def _cpu_calls():
         cuda_lut,
         cuda_pack,
         cuda_pack_split,
+        cuda_rate,
         cuda_vlc,
         cuda_vlc_compat,
         cuda_vlc_levels,
@@ -147,6 +151,7 @@ def _cpu_calls():
         "pack_pairs": lambda: cuda_pack.pack_pairs(codes, lens, 64),
         "pack_windows": lambda: cuda_pack_split.pack_windows(codes, lens, 64),
         "pack_split": lambda: cuda_pack_split.pack_split(codes, lens, 64),
+        "bit_count": lambda: cuda_rate.bit_count(*planes, qw, luts),
     }
 
 

@@ -8,7 +8,8 @@ and RGB entries pad on the device in `encode.edge_pad`, after the copy);
 `encode.levels` sits inside `encode.enqueue` on exactly the routes that
 call `plane_levels` (the f32 DCT and the generic `pack=` route, not the
 AAN kernel route), and on the RGB route `encode.rgb420` (colour and 4:2:0)
-before it.  A regrow adds one `encode.enqueue` and one `encode.fetch_bits`
+before it; with `bit_rate`, `encode.rate` (the count and the choice of
+each picture's scale) after the colour.  A regrow adds one `encode.enqueue` and one `encode.fetch_bits`
 per re-run, on the same device copies, and one more colour pass, counted
 in `rgb420_passes`.  The sharded encoder copies and launches shard by
 shard.  Compat copies the RGB
@@ -120,6 +121,24 @@ def test_correct_mode_spans(tmp_path, intake, dct_impl, pack, levels):
     assert got == want
     _check_correct_mode(tree, COEFFS if intake == "coeffs" else CORRECT, levels,
                         rgb=intake == "rgb")
+
+
+@pytest.mark.parametrize("intake", ["planes", "rgb", "coeffs"])
+def test_rate_control_span(tmp_path, intake):
+    """With `bit_rate` the count launch and the choice run as `encode.rate`
+    inside `encode.enqueue`, after `encode.rgb420` on the RGB route; the
+    top-level order is the same."""
+    enc = TorchMPEG1IntraEncoder(quality=50, bit_rate=400 * 500, device="cpu")
+    call = {"planes": lambda: enc.encode_from_planes(*_planes()),
+            "rgb": lambda: enc.encode(_rgb()),
+            "coeffs": lambda: enc.encode_from_coeffs(*_coeffs(), H, W)}[intake]
+    want = call()
+    got, tree = _traced(tmp_path, call)
+    assert got == want
+    assert _children(tree, CALLER) == (COEFFS if intake == "coeffs" else CORRECT)
+    assert _children(tree, "encode.enqueue") == ["encode.rgb420"] * (intake == "rgb") + [
+        "encode.rate"]
+    assert sum(name == "encode.rate" for name, _ in tree) == 1
 
 
 def _count_forward(monkeypatch):
@@ -234,20 +253,22 @@ def _stage_names():
 def test_no_stage_span_ends_in_launch():
     names = _stage_names()
     assert set(CORRECT + COMPAT) | {"encode.intake", "encode.levels", "encode.rgb420",
-                                    "encode.jpeg_decode"} == names
+                                    "encode.jpeg_decode", "encode.rate"} == names
     assert not [n for n in names if n.endswith("_launch")]
 
 
-@pytest.mark.parametrize("intake", ["planes", "rgb", "coeffs", "compat", "regrow"])
+@pytest.mark.parametrize("intake", ["planes", "rgb", "coeffs", "compat", "regrow", "rate"])
 def test_no_span_is_built_with_the_profiler_off(monkeypatch, intake):
     def forbidden(name):
         raise AssertionError(f"span {name!r} built with the profiler off")
 
     monkeypatch.setattr(profiling, "record_function", forbidden)
     enc = TorchMPEG1IntraEncoder(quality=50, device="cpu",
-                                 max_slice_bytes=8 if intake == "regrow" else None)
+                                 max_slice_bytes=8 if intake == "regrow" else None,
+                                 bit_rate=400 * 500 if intake == "rate" else None)
     {"planes": lambda: enc.encode_from_planes(*_planes()),
      "regrow": lambda: enc.encode_from_planes(*_planes()),
+     "rate": lambda: enc.encode(_rgb()),
      "rgb": lambda: enc.encode(_rgb()),
      "coeffs": lambda: enc.encode_from_coeffs(*_coeffs(), H, W),
      "compat": lambda: encode_compat(_rgb(b=1, h=150, w=101), 12, device="cpu")}[intake]()
